@@ -21,6 +21,12 @@
 // 128-byte transactions), keeps them in registers, reduces max|x| with warp
 // shuffles (no shared memory, no second read of x) and writes its 8 int8 as
 // one 8-byte store.  Each block is read exactly once and written once.
+// x may be any contiguous f32 view (the in-graph step quantizes bucket views
+// of the flat gradient, which start wherever the bucket's first leaf does):
+// where x is not 16-byte aligned the launch picks the same kernel with
+// scalar loads instead, lane l taking elements l, l+32, ... of its block (a
+// warp still reads 128 contiguous bytes per load), and byte stores.  Both
+// variants compute the same values; x is never copied to align it.
 // All offsets are 64-bit: a full-width qwen2-0.5b update is ~4.9e8 floats,
 // within 8% of INT32_MAX in bytes, and larger models pass it.
 
@@ -45,6 +51,12 @@ __device__ __forceinline__ uint32_t quant4(const float* v, float scale) {
   return word;
 }
 
+__device__ __forceinline__ int8_t quant1(float v, float scale) {
+  return static_cast<int8_t>(
+      static_cast<int>(fminf(fmaxf(rintf(v / scale), -127.0f), 127.0f)));
+}
+
+template <bool kAligned>
 __global__ void __launch_bounds__(32 * kWarpsPerCta)
 quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
                 float* __restrict__ scales, int64_t n_blocks) {
@@ -52,12 +64,23 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   const int64_t blk =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerCta + (threadIdx.x >> 5);
   if (blk >= n_blocks) return;  // whole warp leaves together
-  const int64_t base = blk * kBlock + static_cast<int64_t>(lane) * kPerLane;
+  // aligned: lane owns elements [8*lane, 8*lane + 8) of the block;
+  // unaligned: lane owns elements lane, lane + 32, ..., lane + 224
+  const int64_t base = blk * kBlock +
+                       (kAligned ? static_cast<int64_t>(lane) * kPerLane
+                                 : static_cast<int64_t>(lane));
 
-  const float4* src = reinterpret_cast<const float4*>(x + base);
-  const float4 a = src[0];
-  const float4 b = src[1];
-  const float v[kPerLane] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  float v[kPerLane];
+  if (kAligned) {
+    const float4* src = reinterpret_cast<const float4*>(x + base);
+    const float4 a = src[0];
+    const float4 b = src[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) v[i] = x[base + 32 * i];
+  }
 
   float m = 0.0f;
 #pragma unroll
@@ -67,23 +90,34 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
 
   const float scale = fmaxf(m * (1.0f / 127.0f), 1e-30f);
-  const uint2 packed = make_uint2(quant4(v, scale), quant4(v + 4, scale));
-  *reinterpret_cast<uint2*>(q + base) = packed;
+  if (kAligned) {
+    const uint2 packed = make_uint2(quant4(v, scale), quant4(v + 4, scale));
+    *reinterpret_cast<uint2*>(q + base) = packed;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) q[base + 32 * i] = quant1(v[i], scale);
+  }
   if (lane == 0) scales[blk] = scale;
 }
 
 }  // namespace
 
-// x: f32 [n_blocks * 256], 16-byte aligned; q: int8 [n_blocks * 256],
-// 8-byte aligned; scales: f32 [n_blocks].  Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// x: f32 [n_blocks * 256], 4-byte aligned (16-byte aligned takes the
+// vector loads); q: int8 [n_blocks * 256], 8-byte aligned; scales: f32
+// [n_blocks].  Launches on `stream` and returns cudaGetLastError() (0 when
+// the launch was accepted).
 extern "C" int repro_quantize(const float* x, int8_t* q, float* scales,
                               int64_t n_blocks, void* stream) {
   if (n_blocks <= 0) return 0;
   const int64_t grid = (n_blocks + kWarpsPerCta - 1) / kWarpsPerCta;
-  quantize_kernel<<<static_cast<unsigned int>(grid), 32 * kWarpsPerCta, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, q, scales,
-                                                         n_blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    quantize_kernel<true><<<static_cast<unsigned int>(grid),
+                            32 * kWarpsPerCta, 0, s>>>(x, q, scales, n_blocks);
+  else
+    quantize_kernel<false><<<static_cast<unsigned int>(grid),
+                             32 * kWarpsPerCta, 0, s>>>(x, q, scales,
+                                                        n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

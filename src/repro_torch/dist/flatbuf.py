@@ -3,8 +3,9 @@
 The control plane schedules whole *buckets* (paper §4: updates are the unit
 of transfer), so the data plane moves each bucket as one contiguous array.
 The planners are pure Python, copied from ``repro/dist/flatbuf.py`` (that
-module imports JAX at the top); ``pack_leaves`` and
-``flat_compress_roundtrip`` are its data movements in PyTorch.
+module imports JAX at the top); ``pack_leaves``, ``bucket_slice``,
+``unpack_bucket`` and ``flat_compress_roundtrip`` are its data movements in
+PyTorch.
 
 Leaf order is the reference's sorted-key order (``repro_torch.tree``): the
 layout, the per-leaf padding and hence every quantization block depend on
@@ -113,7 +114,7 @@ def plan_flat_layout(leaf_sizes: Sequence[int], bucket_bytes: int, *,
 
 
 # --------------------------------------------------------------------------- #
-# pack
+# pack / unpack
 # --------------------------------------------------------------------------- #
 def pack_leaves(leaves: Sequence[torch.Tensor],
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -121,6 +122,30 @@ def pack_leaves(leaves: Sequence[torch.Tensor],
     if len(leaves) == 1:
         return leaves[0].to(dtype).ravel()
     return torch.cat([l.to(dtype).ravel() for l in leaves])
+
+
+def bucket_slice(flat: torch.Tensor, layout: FlatLayout, k: int
+                 ) -> torch.Tensor:
+    """Bucket ``k`` of the flat buffer: a view, not a copy."""
+    start = layout.bucket_starts[k]
+    return flat[start:start + layout.bucket_sizes[k]]
+
+
+def unpack_bucket(vec: torch.Tensor, layout: FlatLayout, k: int,
+                  leaves: Sequence[torch.Tensor]
+                  ) -> List[Tuple[int, torch.Tensor]]:
+    """Split a reduced bucket back into ``(leaf_index, leaf)`` pairs: views
+    of ``vec`` reshaped to each leaf's shape, cast to its dtype (the cast
+    copies where the dtype differs).  ``leaves`` supplies shapes and
+    dtypes."""
+    out = []
+    start = layout.bucket_starts[k]
+    for i in layout.buckets[k].indices:
+        off = layout.leaf_offsets[i] - start
+        ref = leaves[i]
+        out.append((i, vec[off:off + ref.numel()].view(ref.shape)
+                    .to(ref.dtype)))
+    return out
 
 
 def padded_size(leaf_sizes: Sequence[int], block: int = 256) -> int:

@@ -4,6 +4,6 @@
 ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 
-from .ops import dequant_aggregate_op, quantize_op
+from .ops import dequant_aggregate_op, grad_aggregate_op, quantize_op
 
-__all__ = ["dequant_aggregate_op", "quantize_op"]
+__all__ = ["dequant_aggregate_op", "grad_aggregate_op", "quantize_op"]

@@ -10,7 +10,7 @@ runs at import time: the CPU tests import every module on hosts without
 
 No flag may relax IEEE arithmetic (``--use_fast_math``, ``-prec-div=false``,
 ``-ftz=true``): the quantizer's payload must match the plain version bit for
-bit.
+bit, and the aggregators' sums must match their plain loops bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"quantize": "quantize.cu",
-           "dequant_aggregate": "dequant_aggregate.cu"}
+           "dequant_aggregate": "dequant_aggregate.cu",
+           "grad_aggregate": "grad_aggregate.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -90,6 +90,10 @@ def dequant_aggregate(q: torch.Tensor, scales: torch.Tensor,
     if block % 4:
         raise ValueError(f"dequant_aggregate kernel needs block % 4 == 0, "
                          f"got {block}")
+    # The kernel reads 4 payload bytes a load, so q must start 4-byte
+    # aligned.  Every caller hands it a fresh buffer: the quantizer's output
+    # (flat_compress_roundtrip, and the in-graph step's cross-pod stage on a
+    # pod axis of one) or the all-gather of such outputs across pods.
     if q.data_ptr() % 4:
         raise ValueError("dequant_aggregate kernel needs 4-byte aligned q")
     n, d_pad = q.shape

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from .dequant_aggregate import dequant_aggregate, dequant_aggregate_plain
+from .grad_aggregate import grad_aggregate, grad_aggregate_plain
 from .quantize import quantize, quantize_plain
 
 
@@ -56,5 +57,18 @@ def dequant_aggregate_op(q: torch.Tensor, scales: torch.Tensor,
                                    orig_len=orig_len)
 
 
+def grad_aggregate_op(updates: torch.Tensor, weights: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Aggregator compute: updates [N, D] (f32 or bf16) -> weighted sum in
+    f32 -> (agg [D] of updates' dtype, ||agg||^2 f32).  A ragged D is
+    masked inside the kernel, with no pad copy."""
+    if _route(updates, "grad_aggregate_op"):
+        out = grad_aggregate(updates, weights)
+        grad_aggregate_op.launches += 1
+        return out
+    return grad_aggregate_plain(updates, weights)
+
+
 quantize_op.launches = 0
 dequant_aggregate_op.launches = 0
+grad_aggregate_op.launches = 0

@@ -54,8 +54,10 @@ def quantize_plain(x: torch.Tensor, *, block: int = 256
 
 def quantize(x: torch.Tensor, *, block: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel.  x: f32 [D] on the card, contiguous, 16-byte
-    aligned, D % 256 == 0 -> (q int8 [D], scales f32 [D/256])."""
+    """The CUDA kernel.  x: contiguous f32 [D] on the card, D % 256 == 0,
+    starting anywhere (a view into a flat buffer is fine: the kernel reads
+    16 bytes a load where x is 16-byte aligned and one float otherwise)
+    -> (q int8 [D], scales f32 [D/256])."""
     lib, fn, kernel_block = _kernel()
     if block != kernel_block:
         raise ValueError(f"the CUDA quantize kernel takes block="
@@ -67,8 +69,6 @@ def quantize(x: torch.Tensor, *, block: int = 256
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[0] % block:
         raise ValueError(f"length {x.shape[0]} is not a multiple of {block}")
-    if x.data_ptr() % 16:
-        raise ValueError("quantize kernel needs a 16-byte aligned input")
     n_blocks = x.shape[0] // block
     q = torch.empty(x.shape[0], dtype=torch.int8, device=x.device)
     scales = torch.empty(n_blocks, dtype=torch.float32, device=x.device)

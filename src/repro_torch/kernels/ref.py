@@ -3,7 +3,8 @@ for the kernels this port carries so far.
 
 They keep the oracles' own arithmetic: ``quantize_ref`` divides by 127
 (the jitted main path multiplies by its f32 reciprocal, see ``quantize.py``)
-and ``dequant_aggregate_ref`` sums the rows with one ``einsum``.  The tests
+and ``dequant_aggregate_ref`` and ``grad_aggregate_ref`` sum the rows
+with one ``einsum``.  The tests
 hold them against the JAX oracles, and the kernels' plain versions against
 them.
 """
@@ -28,6 +29,15 @@ def dequant_aggregate_ref(q: torch.Tensor, scales: torch.Tensor,
         x = x[:, :orig_len]
     agg = torch.einsum("nd,n->d", x, weights.to(torch.float32))
     return agg, torch.sum(agg * agg)
+
+
+def grad_aggregate_ref(updates: torch.Tensor, weights: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """updates: [N, D]; weights: [N] -> (agg [D] of updates' dtype,
+    sumsq [] f32 of the f32 agg)."""
+    agg = torch.einsum("nd,n->d", updates.to(torch.float32),
+                       weights.to(torch.float32))
+    return agg.to(updates.dtype), torch.sum(agg * agg)
 
 
 def quantize_ref(x: torch.Tensor, *, block: int = 256

@@ -8,8 +8,11 @@ matter beyond tidiness: the flat wire pads each *leaf* to a quantization
 block, so splitting them per layer would move the block boundaries.  The
 forward unbinds each stacked leaf once and loops over the layers in Python
 (the reference scans); ``unbind``'s backward stacks the per-layer grads in
-one copy.  There is no rematerialization: at the sequence lengths trained
-here the activations are small beside the parameters.
+one copy.  With ``remat`` (the default, as in the reference) each layer's
+forward runs under ``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` around its scan body: the backward keeps
+only each layer's input and recomputes the layer's internals (at seq 4096
+the blockwise-attention scores alone are gigabytes per layer).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
@@ -68,23 +72,30 @@ def _unbind_layers(tree, n: int):
     return tree.unbind(0)
 
 
-def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
+def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
+                  remat: bool = True) -> torch.Tensor:
+    # nothing to recompute when no graph is being recorded
+    remat = remat and torch.is_grad_enabled()
     for layer_p in _unbind_layers(params["layers"], cfg.n_layers):
-        h = layer_forward(layer_p, h, cfg)
+        if remat:
+            h = checkpoint(layer_forward, layer_p, h, cfg,
+                           use_reentrant=False)
+        else:
+            h = layer_forward(layer_p, h, cfg)
     return h
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, *, remat: bool = True) -> torch.Tensor:
     h = embed_tokens(params["embeds"], batch["tokens"])
-    h = stack_forward(params, h, cfg)
+    h = stack_forward(params, h, cfg, remat=remat)
     return apply_rmsnorm(params["final_norm"], h)
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            *, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = forward(params, batch, cfg)
+    h = forward(params, batch, cfg, remat=remat)
     loss = chunked_loss(h, params["embeds"], batch["labels"], cfg.vocab_size)
     # dense stacks have no auxiliary loss; the key keeps the reference's
     # (total, {"loss", "aux_loss"}) contract

@@ -9,7 +9,8 @@ package, so it runs on a card host that has only PyTorch:
 
 The kernels round each product and sum one at a time in the plain
 versions' order, so agreement is bit for bit (sums of squares rtol 1e-5:
-per-block partials summed in another order).
+per-block partials summed in another order), also on views that start off
+alignment, as the buckets of the in-graph step do.
 """
 
 import os
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
+from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
 from repro_torch.kernels.quantize import quantize_plain
 
 
@@ -95,6 +97,45 @@ class TestOnCard:
         assert torch.equal(ak, ap)
         np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
 
+    @pytest.mark.parametrize("k", [1, 2, 3, 4])
+    def test_quantize_kernel_on_unaligned_views(self, k):
+        """A bucket view starting k floats into a buffer: the kernel reads
+        it in place (scalar loads off 16-byte alignment), bit-equal."""
+        _need_card()
+        flat = torch.from_numpy(_x(256 * 40 + 8, seed=k, scale=0.2)).cuda()
+        view = flat[k:k + 256 * 40]
+        assert (view.data_ptr() % 16 == 0) == (k == 4)
+        before = ops.quantize_op.launches
+        qk, sk = ops.quantize_op(view)
+        assert ops.quantize_op.launches == before + 1
+        qp, sp = quantize_plain(view.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(qk, qp) and torch.equal(sk, sp)
+
+    @pytest.mark.parametrize("n,d", [(1, 4096), (2, 1024 * 9),
+                                     (3, 2 ** 16 + 99), (4, 5), (8, 1000)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_grad_aggregate_kernel(self, n, d, dtype, offset):
+        """Bit-equal agg (products and sums rounded one at a time, rows in
+        order, as the plain loop does) for ragged D, both dtypes, and
+        updates that start one element off alignment."""
+        _need_card()
+        rng = np.random.default_rng(n * d)
+        buf = torch.from_numpy(rng.standard_normal(n * d + offset)
+                               .astype(np.float32)).to("cuda", dtype)
+        u = buf[offset:].view(n, d)
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)
+                             ).cuda()
+        before = ops.grad_aggregate_op.launches
+        ak, ssk = ops.grad_aggregate_op(u, w)
+        assert ops.grad_aggregate_op.launches == before + 1
+        ap, ssp = grad_aggregate_plain(u, w)
+        torch.cuda.synchronize()
+        assert ak.dtype == dtype and ak.shape == (d,)
+        assert torch.equal(ak, ap)
+        np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
+
     def test_kernels_refuse_what_they_do_not_take(self):
         _need_card()
         with pytest.raises(ValueError):
@@ -107,3 +148,14 @@ class TestOnCard:
                 torch.zeros((1, 256), dtype=torch.int8, device="cuda"),
                 torch.zeros((1, 1), dtype=torch.float64, device="cuda"),
                 torch.ones(1, device="cuda"))
+        with pytest.raises(ValueError):
+            ops.grad_aggregate_op(torch.zeros((2, 8), dtype=torch.float16,
+                                              device="cuda"),
+                                  torch.ones(2, device="cuda"))
+        with pytest.raises(ValueError):
+            ops.grad_aggregate_op(torch.zeros((8, 2), device="cuda").T,
+                                  torch.ones(2, device="cuda"))
+        with pytest.raises(ValueError):
+            ops.grad_aggregate_op(torch.zeros((2, 8), device="cuda"),
+                                  torch.ones(2, dtype=torch.float64,
+                                             device="cuda"))

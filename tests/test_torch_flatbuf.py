@@ -6,7 +6,10 @@ identical.  The round-trip decodes one f32 update through quantize and the
 fused decode: per-leaf padding puts every quantization block in the same
 place, so the decoded tree is bit-equal, and ``||u||`` agrees within rtol
 1e-6 (the sum of squares is summed in another order: per 2048-column tile
-in the reference, per 1024-column block here).
+in the reference, per 1024-column block here).  The bucket views of the
+in-graph step's reduction (``bucket_slice``, ``unpack_bucket``) are
+compared element for element, and a quantized bucket that starts off
+alignment bit for bit.
 """
 
 import dataclasses
@@ -100,3 +103,72 @@ def test_flat_compress_roundtrip_matches(jax_params, scale):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     assert np.abs(tdec["layers"]["mix"]["bq"].numpy()).max() > 0
     np.testing.assert_allclose(tnorm, jnorm, rtol=1e-6)
+
+
+@pytest.mark.parametrize("bucket_bytes", [1024, 64 * 1024, 4 * 2 ** 20])
+@pytest.mark.parametrize("shortest_first", [True, False])
+def test_bucket_views_match(jax_params, bucket_bytes, shortest_first):
+    """plan_reduce, bucket_slice and unpack_bucket give JAX's buckets and
+    leaves; a bucket is a view of the flat buffer, and a leaf a view of its
+    bucket wherever no cast is needed."""
+    from repro.dist.collectives import plan_reduce as j_plan_reduce
+    from repro_torch.dist.collectives import plan_reduce
+
+    rng = np.random.default_rng(11)
+    grads = jax.tree.map(
+        lambda x: rng.standard_normal(x.shape).astype(np.float32), jax_params)
+    tgrads = to_torch(grads, device="cpu")
+    jl = j_plan_reduce(jax.tree.map(jnp.asarray, grads),
+                       bucket_bytes=bucket_bytes,
+                       shortest_first=shortest_first)
+    tl = plan_reduce(tgrads, bucket_bytes=bucket_bytes,
+                     shortest_first=shortest_first)
+    assert dataclasses.astuple(tl) == dataclasses.astuple(jl)
+
+    jleaves = jax.tree_util.tree_leaves(grads)
+    tleaves = tree_leaves(tgrads)
+    jflat_pack = jflat.pack_leaves([jnp.asarray(l) for l in jleaves])
+    tflat_buf = tflat.pack_leaves(tleaves)
+    for k in range(len(tl.buckets)):
+        tv = tflat.bucket_slice(tflat_buf, tl, k)
+        jv = jflat.bucket_slice(jflat_pack, jl, k)
+        assert tv.data_ptr() == tflat_buf.data_ptr() + 4 * tl.bucket_starts[k]
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        jparts = jflat.unpack_bucket(jv, jl, k, jleaves)
+        tparts = tflat.unpack_bucket(tv, tl, k, tleaves)
+        assert [i for i, _ in tparts] == [i for i, _ in jparts]
+        for (_, t), (_, j) in zip(tparts, jparts):
+            assert tuple(t.shape) == j.shape
+            assert t.untyped_storage().data_ptr() == \
+                tflat_buf.untyped_storage().data_ptr()
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_unpack_bucket_casts_to_leaf_dtype():
+    leaves = [torch.zeros(3, dtype=torch.bfloat16), torch.zeros((2, 2))]
+    layout = tflat.plan_flat_layout([3, 4], 1 << 20)
+    vec = torch.arange(7, dtype=torch.float32) + 0.25
+    (i0, a), (i1, b) = tflat.unpack_bucket(vec, layout, 0, leaves)
+    assert (i0, i1) == (0, 1)
+    assert a.dtype == torch.bfloat16 and b.shape == (2, 2)
+    assert torch.equal(b, vec[3:].view(2, 2))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_quantize_op_on_unaligned_slice_matches_jax(k):
+    """A bucket view may start at any element: the port's quantize_op on
+    flat[k:k+n] equals JAX's on the same slice, bit for bit (the CUDA
+    kernel's unaligned path is held against this in
+    tests/test_torch_cuda.py)."""
+    from repro.kernels.ops import quantize_op as j_quantize_op
+    from repro_torch.kernels.ops import quantize_op
+
+    rng = np.random.default_rng(k)
+    flat = (rng.standard_normal(4096) * 0.3).astype(np.float32)
+    for n in (256, 1000):
+        view = torch.from_numpy(flat)[k:k + n]
+        assert view.data_ptr() % 16 != 0
+        qt, st = quantize_op(view)
+        qj, sj = j_quantize_op(jnp.asarray(flat[k:k + n]))
+        np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))

@@ -1,4 +1,4 @@
-"""The port's wire kernels against the JAX package's, on identical numpy
+"""The port's kernels against the JAX package's, on identical numpy
 inputs.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
@@ -16,6 +16,7 @@ Tolerances:
   rtol 1e-6 for N > 1, where the reference's ``jnp.sum`` over a row chunk
   and the port's in-order row loop round in different orders; the sum of
   squares rtol 1e-5 (per-tile partials summed in different orders).
+* grad_aggregate: see ``TestGradAggregate``.
 """
 
 import jax.numpy as jnp
@@ -26,9 +27,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.dequant_aggregate import dequant_aggregate as j_dequant_aggregate
+from repro.kernels.grad_aggregate import grad_aggregate as j_grad_aggregate
 from repro.kernels.quantize import quantize as j_quantize
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
+from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
 from repro_torch.kernels.quantize import quantize_plain
 
 
@@ -196,3 +199,96 @@ class TestRouting:
                                                  device="meta"),
                                      torch.zeros((1, 1), device="meta"),
                                      torch.ones(1, device="meta"))
+
+
+# --------------------------------------------------------------------------- #
+# grad_aggregate
+# --------------------------------------------------------------------------- #
+def _updates(n, d, dtype, seed):
+    """f32 normals (rounded to bf16 for the bf16 cases, so both packages
+    start from the same values) and weights in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n, d)).astype(np.float32)
+    if dtype == "bfloat16":
+        u = torch.from_numpy(u).bfloat16().float().numpy()
+    return u, rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (8 bits of mantissa)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(2.0 ** -126))))
+    return np.float32(2.0) ** (e - 7)
+
+
+class TestGradAggregate:
+    """The port's plain version against the Pallas kernel in interpret mode
+    at the ``block_d`` values of ``tests/test_kernels.py``.  f32 agg within
+    rtol 1e-6 (atol 1e-6: the reference sums its rows inside one
+    ``jnp.sum``, the port in row order, so where the rows cancel the error
+    is of the summands' size).  It is not bit-equal, even at N=2: XLA's CPU
+    code fuses a product into the sum (an FMA) where the port rounds the
+    product first; about a quarter of the columns differ by an ulp or two.
+    bf16 agg within one bf16 ulp (the two f32
+    sums may fall on either side of a bf16 rounding boundary); ssq rtol
+    1e-5 (per-tile partials summed in another order)."""
+
+    @pytest.mark.parametrize("n,d,block_d", [
+        (2, 256, 256), (5, 1024, 256), (8, 4096, 256), (1, 512, 256),
+        (3, 1000, 256), (2, 100, 2048), (4, 2049, 1024)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_matches_pallas(self, n, d, block_d, dtype):
+        u, w = _updates(n, d, dtype, seed=n * 7919 + d)
+        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        aj, ssj = j_grad_aggregate(jnp.asarray(u, jdt), jnp.asarray(w),
+                                   block_d=block_d, interpret=True)
+        tu = torch.from_numpy(u).to(getattr(torch, dtype))
+        ap, ssp = grad_aggregate_plain(tu, torch.from_numpy(w))
+        assert ap.shape == (d,) and ap.dtype == tu.dtype
+        got, ref = ap.float().numpy(), np.asarray(aj, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        else:
+            assert np.all(np.abs(got - ref) <= _bf16_ulp(ref))
+        np.testing.assert_allclose(float(ssp), float(ssj), rtol=1e-5)
+
+    def test_plain_matches_oracle_twin(self):
+        u, w = _updates(6, 777, "float32", seed=2)
+        ap, ssp = grad_aggregate_plain(torch.from_numpy(u),
+                                       torch.from_numpy(w))
+        ar, ssr = ref.grad_aggregate_ref(torch.from_numpy(u),
+                                         torch.from_numpy(w))
+        aj, ssj = jref.grad_aggregate_ref(jnp.asarray(u), jnp.asarray(w))
+        np.testing.assert_allclose(ar.numpy(), np.asarray(aj), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(ap.numpy(), ar.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(float(ssp), float(ssj), rtol=1e-5)
+
+    def test_uniform_weights_is_sum(self):
+        agg, ssq = ops.grad_aggregate_op(torch.ones((4, 512)), torch.ones(4))
+        assert torch.all(agg == 4.0) and float(ssq) == 16.0 * 512
+
+    def test_rows_summed_in_order(self):
+        # (1e8 + 1) - 1e8 is 0 in f32, but 1e8 + (1 - 1e8) is 1: the row
+        # order is part of the contract the CUDA kernel reproduces
+        u = torch.tensor([[1e8], [1.0], [-1e8]])
+        agg, _ = ops.grad_aggregate_op(u, torch.ones(3))
+        assert float(agg[0]) == 0.0
+
+    def test_bad_shapes_raise(self):
+        with pytest.raises(ValueError):
+            grad_aggregate_plain(torch.ones(8), torch.ones(1))
+        with pytest.raises(ValueError):
+            grad_aggregate_plain(torch.ones((2, 8)), torch.ones(3))
+
+
+class TestGradAggregateRouting:
+    def test_cpu_goes_to_plain_and_counts_nothing(self):
+        before = ops.grad_aggregate_op.launches
+        ops.grad_aggregate_op(torch.ones((2, 300)), torch.ones(2))
+        assert ops.grad_aggregate_op.launches == before
+
+    def test_meta_raises(self):
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.grad_aggregate_op(torch.zeros((2, 256), device="meta"),
+                                  torch.ones(2, device="meta"))

@@ -11,8 +11,9 @@
 * The port alone meets the claims of
   ``tests/test_system.py::test_end_to_end_async_lm_training`` and of
   ``tests/test_failover.py::test_midrun_primary_kill_recovers_within_divmax``.
-* The package imports neither JAX nor the JAX package, and never falls
-  back to the CPU unasked.
+* The package imports neither JAX nor the JAX package, not even after a
+  world-of-one in-graph MLfabric step, and never falls back to the CPU
+  unasked.
 """
 
 import os
@@ -218,6 +219,21 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
                        update_size=mb(1), has_aux=True, compress=True,
                        device="cpu").run(until_commits=3)
     assert res.commits >= 3
+
+    # the in-graph MLfabric step on a world of one, compressed
+    import dataclasses
+    import repro_torch.dist.collectives  # noqa: F401
+    import repro_torch.launch.mesh, repro_torch.launch.steps  # noqa: F401
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.optim import momentum_sgd_init
+    shape = dataclasses.replace(get_shape("train_4k"), seq_len=16,
+                                global_batch=2)
+    step = build_step(cfg, shape, make_host_mesh(device="cpu"),
+                      grad_path="mlfabric", compress_inter=True,
+                      bucket_bytes=1024)
+    _, _, m = step.fn(params, momentum_sgd_init(params), data_fn(0, 0))
+    assert torch.isfinite(m["loss"])
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
@@ -245,3 +261,6 @@ def test_no_silent_cpu_fallback(monkeypatch):
         AsyncTrainer(params, model.loss_fn, lambda w, t: None, has_aux=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         to_torch({"w": np.zeros(3, np.float32)})
+    from repro_torch.launch import make_host_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
