@@ -20,8 +20,13 @@ toolkit.  Every line it prints is one JSON object:
    (136,249,344 columns) and at N=3 on a ragged D in f32 and bf16, agg
    bit-equal; ``quantize`` on a view one float off 16-byte alignment,
    bit-equal; ``dequant_aggregate`` timed at N = 2, 4 on the embedding
-   bucket; and one compressed ``mlfabric_grad_reduce`` of a tree whose
-   second bucket is such a view, on the card against the CPU.
+   bucket; one compressed ``mlfabric_grad_reduce`` of a tree whose
+   second bucket is such a view, on the card against the CPU;
+   ``switch_sum`` at N = 1, 2, 4 on the embedding bucket, on a ragged
+   ``orig_len`` and at 300 members of +127, bit-equal; and
+   ``scatter_aggregate`` at N = 1, 2, 4 with K = 13,624,934 top-k slots
+   (25% dropped) into the embedding bucket, agg ``torch.equal``, plus a
+   duplicates case within its stated bound.
 4. ``reduced_parity``: the reduced qwen2-0.5b slice trained on the card
    (kernels) and on the CPU (plain versions) from the same f32 params; the
    eval losses must agree.
@@ -33,15 +38,26 @@ toolkit.  Every line it prints is one JSON object:
    qwen2-0.5b in f32 on a ``(pod=1, data=1)`` mesh with 1 KiB buckets
    (uncompressed, compressed, ``overlap_chunks=2``), on the card and on
    the CPU from the same params and batch.
-7. ``mlfabric_step``: the in-graph MLfabric step
+7. ``reduced_tier_parity``: the reduced qwen2-0.5b's f32 gradient through
+   the switch, hierarchical, keep_inter and switch + keep_inter tiers on
+   the card and on the CPU: ``torch.equal``.
+8. ``mlfabric_step``: the in-graph MLfabric step
    (``launch.steps.build_step(..., grad_path="mlfabric")``) on the
    full-width Qwen2-0.5B in bf16 at seq 4096, global batch 2, in three
    configurations of 1 warm-up and 3 timed steps each; finite losses,
    kernel launches equal to buckets x steps (x chunks), and agreement with
    the "auto" step.
-8. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
-   gloo processes sharing the card, reduced model, against the auto step.
-9. The ``{"kernels": [...]}`` summary, then ``{"ok": true, ...}`` last.
+9. ``tiers_setup`` and ``tiers``: ``mlfabric_grad_reduce`` of the
+   full-width gradient (one forward and backward, 494,147,456 values, 10
+   buckets) with the host, switch, hierarchical, keep_inter (25% transport
+   drops) and switch + keep_inter tiers, 1 warm-up and 3 timed reduces
+   each: ms per reduce, launches, peak memory and exact checks; then 3
+   rounds of one sender's ``ErrorFeedback`` over the embedding bucket.
+10. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
+   gloo processes sharing the card, reduced model, against the auto step;
+   then the three tiers on that world.
+11. The ``{"kernels": [...]}`` summary (five kernels), then
+   ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
 of JAX and nothing of the JAX package ``repro``.
@@ -111,18 +127,19 @@ def bound_by(nbytes: float, flops: float = 0.0) -> str:
             else "operations")
 
 
+KERNELS = ("quantize", "dequant_aggregate", "grad_aggregate", "switch_sum",
+           "scatter_aggregate")
+
+
 def ops_launches():
     from repro_torch.kernels import ops
-    return {"quantize": ops.quantize_op.launches,
-            "dequant_aggregate": ops.dequant_aggregate_op.launches,
-            "grad_aggregate": ops.grad_aggregate_op.launches}
+    return {k: getattr(ops, f"{k}_op").launches for k in KERNELS}
 
 
 def zero_launches() -> None:
     from repro_torch.kernels import ops
-    ops.quantize_op.launches = 0
-    ops.dequant_aggregate_op.launches = 0
-    ops.grad_aggregate_op.launches = 0
+    for k in KERNELS:
+        getattr(ops, f"{k}_op").launches = 0
 
 
 def rel_err(a, b) -> float:
@@ -269,6 +286,8 @@ def phase_kernels():
     kernel_quantize_unaligned(gen, dev, rows)
     kernel_grad_aggregate(gen, dev, rows)
     kernel_reduce_unaligned_tree(dev)
+    kernel_switch_sum(gen, dev, rows)
+    kernel_scatter_aggregate(gen, dev, rows)
     return rows
 
 
@@ -424,6 +443,165 @@ def kernel_reduce_unaligned_tree(dev) -> None:
           "tree": {"a": 5, "b": 256}, "bucket_bytes": 1024,
           "compress_inter": True, "launches": launched,
           "card_equals_cpu": True})
+
+
+def kernel_switch_sum(gen, dev, rows) -> None:
+    """switch_sum at N = 1, 2, 4 members on the full-width embedding bucket
+    (N=1 is what the single-card tiers run), a ragged ``orig_len`` (the
+    smallest bucket's 28,544 in a 28,672 pad) and 300 members at +127;
+    bit-equal to the plain version.  Integer adds are counted against the
+    f32 CUDA-core rate, the nearest entry of the card's table; bytes bind.
+    The library yardstick is ``torch.sum(q[:, :orig_len], dim=0,
+    dtype=torch.int32)``."""
+    import torch
+    from repro_torch.kernels.ops import switch_sum_op
+    from repro_torch.kernels.switch_sum import switch_sum_plain
+
+    d = EMBED_D
+    for n in (1, 2, 4):
+        q = torch.randint(-127, 128, (n, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+        got = switch_sum_op(q, orig_len=d)
+        want = switch_sum_plain(q, orig_len=d)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"switch_sum N={n}: differs from the plain version")
+        err = float((got - want).abs().max())
+        del got, want
+        ms = cuda_ms(lambda: switch_sum_op(q, orig_len=d), iters=10)
+        plain_ms = cuda_ms(lambda: switch_sum_plain(q, orig_len=d), iters=3,
+                           warmup=1)
+        library_ms = cuda_ms(lambda: torch.sum(q[:, :d], dim=0,
+                                               dtype=torch.int32), iters=10)
+        nbytes, ops_ = n * d + 4 * d, n * d
+        row = dict(name="switch_sum", route="cuda",
+                   source="src/repro_torch/csrc/switch_sum.cu",
+                   replaces="src/repro/kernels/switch_sum.py:52",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms(nbytes, ops_),
+                   bound_by=bound_by(nbytes, ops_), library_ms=library_ms)
+        emit({"phase": "kernel", "kernel": "switch_sum", "N": n, "D_pad": d,
+              "orig_len": d, "bit_equal": True,
+              "library": "torch.sum(q, dim=0, dtype=int32)", **row})
+        if n == 1:
+            rows["switch_sum"] = row
+        del q
+    for n, d_pad, orig_len, fill in ((2, 28_672, 28_544, None),
+                                     (300, 65_536, 65_536, 127)):
+        q = (torch.full((n, d_pad), fill, dtype=torch.int8, device=dev)
+             if fill is not None else
+             torch.randint(-127, 128, (n, d_pad), generator=gen, device=dev,
+                           dtype=torch.int8))
+        got = switch_sum_op(q, orig_len=orig_len)
+        want = switch_sum_plain(q, orig_len=orig_len)
+        torch.cuda.synchronize()
+        check(got.shape == (orig_len,) and torch.equal(got, want),
+              f"switch_sum N={n} orig_len={orig_len}: differs")
+        if fill is not None:
+            check(int(got.min()) == int(got.max()) == n * fill,
+                  f"switch_sum overflow case: {int(got.min())}")
+        emit({"phase": "kernel", "kernel": "switch_sum", "N": n,
+              "D_pad": d_pad, "orig_len": orig_len, "bit_equal": True,
+              "fill": fill, "max": int(got.max())})
+
+
+def _sparse_chunks(gen, dev, n: int, k: int, d: int):
+    """n senders' chunks as the sparse stage builds them: idx from the
+    |.|-top-k of a random vector, 25% of the slots dropped (-1), random
+    int8 values and scales, weights 1."""
+    import torch
+    from repro_torch.dist.flatbuf import topk_sparsify
+
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    for i in range(n):
+        idx[i] = topk_sparsify(torch.randn(d, generator=gen, device=dev),
+                               k)[0]
+    idx[torch.rand((n, k), generator=gen, device=dev) < 0.25] = -1
+    q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+    return idx, q, s, torch.ones(n, device=dev)
+
+
+def kernel_scatter_aggregate(gen, dev, rows) -> None:
+    """scatter_aggregate at N = 1, 2, 4 pods with K = 13,624,934 slots
+    (keep 0.1 of the embedding bucket) into d_out = 136,249,344: agg
+    ``torch.equal`` to the plain version (distinct indices per sender),
+    sum of squares rtol 1e-5; and a duplicates case, whose atomic adds
+    meet in a varying order: within 2 m 2^-24 sum|v| per column for m
+    adds.  The library yardstick ``index_put_(accumulate=True)`` of the
+    live slots' values into a zeroed buffer gives agg only (no norm)."""
+    import torch
+    from repro_torch.kernels.ops import scatter_aggregate_op
+    from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
+
+    d = EMBED_D
+    k = int(round(0.1 * d))
+    for n in (1, 2, 4):
+        idx, q, s, w = _sparse_chunks(gen, dev, n, k, d)
+        agg_k, ssq_k = scatter_aggregate_op(idx, q, s, w, d_out=d)
+        agg_p, ssq_p = scatter_aggregate_plain(idx, q, s, w, d_out=d)
+        torch.cuda.synchronize()
+        check(torch.equal(agg_k, agg_p),
+              f"scatter_aggregate N={n}: agg differs from the plain version")
+        check(rel_err(ssq_k, ssq_p) <= 1e-5,
+              f"scatter_aggregate N={n}: ssq {float(ssq_k)} vs "
+              f"{float(ssq_p)}")
+        err = float((agg_k - agg_p).abs().max())
+        live = idx >= 0
+        n_live = int(live.sum())
+        del agg_k, agg_p
+        ms = cuda_ms(lambda: scatter_aggregate_op(idx, q, s, w, d_out=d),
+                     iters=10)
+        plain_ms = cuda_ms(lambda: scatter_aggregate_plain(idx, q, s, w,
+                                                           d_out=d),
+                           iters=3, warmup=1)
+        pos = idx[live].to(torch.int64)
+        vals = (q.to(torch.float32) * (s * w)[:, None])[live]
+        out = torch.zeros(d, device=dev)
+        library_ms = cuda_ms(lambda: out.index_put_((pos,), vals,
+                                                    accumulate=True),
+                             iters=10)
+        del pos, vals, out
+        nbytes = 5 * n * k + 8 * n + 4 * d
+        ops_ = 2 * n_live + 2 * d
+        row = dict(name="scatter_aggregate", route="cuda",
+                   source="src/repro_torch/csrc/scatter_aggregate.cu",
+                   replaces="src/repro/kernels/scatter_aggregate.py:82",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms(nbytes, ops_),
+                   bound_by=bound_by(nbytes, ops_), library_ms=library_ms)
+        emit({"phase": "kernel", "kernel": "scatter_aggregate", "N": n,
+              "K": k, "d_out": d, "live_slots": n_live, "bit_equal": True,
+              "ssq_rel_err": rel_err(ssq_k, ssq_p),
+              "library": "index_put_(accumulate=True) of the live slots "
+                         "(agg only, no zero fill, no norm)", **row})
+        if n == 1:
+            rows["scatter_aggregate"] = row
+        del idx, q, s, w
+
+    n, k, d = 2, 2 ** 20, 2 ** 16
+    idx = torch.randint(0, d, (n, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(n, generator=gen, device=dev) + 0.5
+    w = torch.rand(n, generator=gen, device=dev) + 0.5
+    agg_k, ssq_k = scatter_aggregate_op(idx, q, s, w, d_out=d)
+    agg_p, ssq_p = scatter_aggregate_plain(idx, q, s, w, d_out=d)
+    v = (q.to(torch.float64) * (s * w).to(torch.float64)[:, None]).abs()
+    absum = torch.zeros(d, dtype=torch.float64, device=dev).index_add_(
+        0, idx.ravel().to(torch.int64), v.ravel())
+    m = int(torch.bincount(idx.ravel().to(torch.int64), minlength=d).max())
+    diff = (agg_k - agg_p).abs().to(torch.float64)
+    check(bool(torch.all(diff <= 2 * m * 2.0 ** -24 * absum)),
+          f"scatter_aggregate duplicates: max abs err {float(diff.max())}")
+    check(rel_err(ssq_k, ssq_p) <= 1e-5, "scatter_aggregate duplicates: ssq")
+    emit({"phase": "kernel", "kernel": "scatter_aggregate", "N": n, "K": k,
+          "d_out": d, "duplicates_per_column_max": m,
+          "bit_equal": bool(torch.equal(agg_k, agg_p)),
+          "max_abs_err": float(diff.max()),
+          "ssq_rel_err": rel_err(ssq_k, ssq_p)})
 
 
 def _reduced_run(device: str, init_np, steps: int):
@@ -720,7 +898,7 @@ def phase_mlfabric_step():
     n_buckets = len(plan_reduce(params, bucket_bytes=4 * 2 ** 20).buckets)
     opt0 = momentum_sgd_init(params)
     kw = dict(lr=STEP_LR, gamma=STEP_GAMMA, remat=True)
-    totals = {"quantize": 0, "dequant_aggregate": 0, "grad_aggregate": 0}
+    totals = dict.fromkeys(KERNELS, 0)
     first = None
     for name, extra in {"mlfabric": {}, "compressed": {"compress_inter": True},
                         "overlap2": {"overlap_chunks": 2}}.items():
@@ -744,11 +922,12 @@ def phase_mlfabric_step():
         for k in totals:
             totals[k] += launched[k]
         steps = len(batches) * extra.get("overlap_chunks", 1)
-        want = ({"quantize": n_buckets * steps,
-                 "dequant_aggregate": n_buckets * steps, "grad_aggregate": 0}
-                if extra.get("compress_inter") else
-                {"quantize": 0, "dequant_aggregate": 0,
-                 "grad_aggregate": n_buckets * steps})
+        want = dict.fromkeys(KERNELS, 0)
+        if extra.get("compress_inter"):
+            want.update(quantize=n_buckets * steps,
+                        dequant_aggregate=n_buckets * steps)
+        else:
+            want["grad_aggregate"] = n_buckets * steps
         timed = secs[1:]
         s_step = sum(timed) / len(timed)
         emit({"phase": "mlfabric_step", "config": name, "arch": cfg.name,
@@ -786,6 +965,304 @@ def phase_mlfabric_step():
         check(bool(torch.any(b != i)) or not bool(torch.any(a != i)),
               "a leaf the auto step moved did not move under mlfabric")
     return totals
+
+
+# --------------------------------------------------------------------------- #
+# the switch and bounded-loss tiers (dist/collectives.py, flatbuf.py)
+# --------------------------------------------------------------------------- #
+TIER_KEEP = 0.1
+TIER_DROP = 0.25
+TIER_TIMED = 3
+TIERS = {"host": {}, "switch": {"backend": "switch"},
+         "hierarchical": {"backend": "hierarchical"},
+         "keep": {"keep_inter": TIER_KEEP, "drop_mask_inter": "loss"},
+         "switch_keep": {"backend": "switch", "keep_inter": TIER_KEEP}}
+
+
+def tier_drop_fn():
+    """``k -> mask`` from ``loss_drop_mask`` on a LossSchedule whose pod0
+    uplink drops ``TIER_DROP`` of its bytes: ``round(0.25 k)`` slots."""
+    import functools
+    from repro_torch.core.network import LossSchedule
+    from repro_torch.dist.collectives import loss_drop_mask
+
+    sched = LossSchedule()
+    sched.set_drop("pod0", 0.0, TIER_DROP, direction="up")
+    return functools.partial(loss_drop_mask, sched, "pod0", "pod1", 0.0)
+
+
+def tier_kwargs(name: str, masks=None) -> dict:
+    """The reduce's keywords for tier ``name``; ``masks`` (a list) records
+    every drop mask handed out, in bucket order."""
+    kw = dict(TIERS[name])
+    masks = [] if masks is None else masks
+    if kw.get("drop_mask_inter") == "loss":
+        drop = tier_drop_fn()
+
+        def recording(k):
+            masks.append(drop(k))
+            return masks[-1]
+
+        kw["drop_mask_inter"] = recording
+    return kw
+
+
+def tier_launches(name: str, n_buckets: int) -> dict:
+    """Kernel launches of one reduce of tier ``name`` on a (pod=1, data=1)
+    mesh: every non-host backend runs the switch sum on every bucket, and
+    the cross-pod stage runs its kernel at N=1."""
+    want = dict.fromkeys(KERNELS, 0)
+    kw = TIERS[name]
+    if kw.get("backend", "host") != "host":
+        want["switch_sum"] = n_buckets
+    if "keep_inter" in kw:
+        want["scatter_aggregate"] = n_buckets
+    elif kw.get("backend") == "hierarchical":
+        want["quantize"] = want["dequant_aggregate"] = n_buckets
+    else:
+        want["grad_aggregate"] = n_buckets
+    return want
+
+
+def grid_error(g, o, scale):
+    """(|o - g|, its limit) in f64, per element: an int8 grid value times
+    its shared ``scale`` lies within half a scale of ``g``, plus the
+    rounding of the quotient ``g / scale`` (under one ulp of g) and of the
+    product ``q * scale`` (half an ulp of o): two ulps of the larger."""
+    import torch
+    big = torch.maximum(g.abs(), o.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+    err = (o.to(torch.float64) - g.to(torch.float64)).abs()
+    return err, 0.5 * float(scale) + 2.0 * ulp.to(torch.float64)
+
+
+def full_width_grads(dev):
+    """One forward and backward of the full-width bf16 Qwen2-0.5B from the
+    port's seeded init on a SyntheticLM batch (seq 256 x batch 2), as an
+    f32 tree: the reduce packs to f32 anyway, and f32 leaves keep the
+    checks free of a bf16 rounding of the result."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(FULL_ARCH)
+    params = build_model(cfg, dtype=torch.bfloat16, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        cfg.vocab_size, SEQ_LEN, seed=0).batch(0, BATCH).items()}
+    metrics, grads = value_and_grad(params, batch, cfg, remat=False)
+    del params
+    out = tree_map(lambda g: g.to(torch.float32), grads)
+    del grads
+    return out, float(metrics["loss"])
+
+
+def phase_tiers():
+    """The switch and bounded-loss tiers on the full-width gradient
+    (494,147,456 values, 10 buckets of 4 MiB) on the (pod=1, data=1) mesh:
+    host (the baseline), switch, hierarchical, keep_inter 0.1 with 25%
+    transport drops from ``loss_drop_mask``, and switch + keep_inter; 1
+    warm-up and ``TIER_TIMED`` timed reduces each.  Checks that hold
+    exactly: host equal to the gradient; switch within half its bucket's
+    shared scale of the gradient plus two ulps (``grid_error``); keep
+    nonzero only at undropped top-k indices, each within that, with
+    round(0.25 k) drops per bucket; everything finite.  Then 3 rounds of one sender's ErrorFeedback over the
+    embedding bucket with the same drops and bound 0.5 ||g||."""
+    import torch
+    from repro_torch.dist.collectives import mlfabric_grad_reduce, plan_reduce
+    from repro_torch.dist.flatbuf import bucket_slice, pack_leaves
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    grads, loss = full_width_grads(dev)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    n_values = sum(g.numel() for g in tree_leaves(grads))
+    mesh = make_host_mesh(device=dev)
+    layout = plan_reduce(grads, bucket_bytes=4 * 2 ** 20)
+    n_buckets = len(layout.buckets)
+    flat_g = pack_leaves(tree_leaves(grads))
+    inv = torch.full((), 1.0 / 127.0, dtype=torch.float32, device=dev)
+    shared = [torch.clamp_min(bucket_slice(flat_g, layout, b).abs().max()
+                              * inv, 1e-30) for b in range(n_buckets)]
+    emit({"phase": "tiers_setup", "arch": FULL_ARCH, "values": n_values,
+          "leaves": len(tree_leaves(grads)), "loss": loss,
+          "grad_s": grad_s, "buckets": list(layout.bucket_sizes)})
+    totals = dict.fromkeys(KERNELS, 0)
+    for name in TIERS:
+        masks = []
+        kw = tier_kwargs(name, masks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        secs = []
+        for _ in range(1 + TIER_TIMED):
+            masks.clear()
+            t0 = time.perf_counter()
+            out = mlfabric_grad_reduce(grads, mesh=mesh, inter_axis="pod",
+                                       **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launched = ops_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k in totals:
+            totals[k] += launched[k]
+        want = {k: v * (1 + TIER_TIMED)
+                for k, v in tier_launches(name, n_buckets).items()}
+        flat_o = pack_leaves(tree_leaves(out))
+        del out
+        checks = {"finite": bool(torch.isfinite(flat_o).all())}
+        check(checks["finite"], f"tiers {name}: non-finite result")
+        if name == "host":
+            # one pod, one member: the aggregate of one row is the row
+            checks["equals_gradient"] = bool(torch.equal(flat_o, flat_g))
+            check(checks["equals_gradient"], "tiers host: result is not g")
+        if name == "switch":
+            worst = 0.0
+            for b in range(n_buckets):
+                g = bucket_slice(flat_g, layout, b)
+                o = bucket_slice(flat_o, layout, b)
+                err, lim = grid_error(g, o, shared[b])
+                check(bool(torch.all(err <= lim)),
+                      f"tiers switch bucket {b}: off the int8 grid by "
+                      f"{float((err - lim).max())}")
+                worst = max(worst, float((err / float(shared[b])).max()))
+                del err, lim
+            checks["max_err_in_scales"] = worst
+        if name == "keep":
+            check(len(masks) == n_buckets, f"{len(masks)} drop masks")
+            drops = []
+            for b in range(n_buckets):
+                g = bucket_slice(flat_g, layout, b)
+                o = bucket_slice(flat_o, layout, b)
+                d = g.shape[0]
+                k = max(1, min(d, int(round(TIER_KEEP * d))))
+                mask = torch.as_tensor(masks[b], device=dev)
+                check(mask.shape == (k,) and
+                      int(mask.sum()) == int(round(TIER_DROP * k)),
+                      f"tiers keep bucket {b}: {int(mask.sum())} drops of "
+                      f"{k}")
+                drops.append(int(mask.sum()))
+                order = torch.sort(g.abs(), descending=True,
+                                   stable=True)[1][:k]
+                alive = torch.zeros(d, dtype=torch.bool, device=dev)
+                alive[order[~mask]] = True
+                check(not bool(torch.any((o != 0) & ~alive)),
+                      f"tiers keep bucket {b}: a nonzero outside the "
+                      "undropped top-k")
+                err, lim = grid_error(g, o, shared[b])
+                check(bool(torch.all((err <= lim) | ~alive)),
+                      f"tiers keep bucket {b}: off the int8 grid")
+                del err, lim
+            checks["drops"] = drops
+        timed = secs[1:]
+        emit({"phase": "tiers", "config": name, "kw": TIERS[name],
+              "buckets": n_buckets, "reduces": len(secs),
+              "launches": launched, "warmup_s": secs[0], "reduce_s": timed,
+              "ms_per_reduce": 1e3 * sum(timed) / len(timed),
+              "max_memory_allocated": peak, "checks": checks})
+        check(launched == want, f"tiers {name}: launched {launched}, want "
+              f"{want}")
+        del flat_o
+    tier_error_feedback(flat_g, layout, dev)
+    del grads, flat_g
+    return totals
+
+
+def tier_error_feedback(flat_g, layout, dev) -> None:
+    """3 rounds of one sender's ErrorFeedback (keep 0.1) over the embedding
+    bucket, drops from the tiers' LossSchedule, bound 0.5 ||g||: the
+    residual within the bound after every round, and delivered plus
+    residual equal to the inputs at tests/test_loss_tolerant.py's
+    tolerance."""
+    import torch
+    from repro_torch.dist.flatbuf import ErrorFeedback, bucket_slice
+
+    b = layout.bucket_sizes.index(EMBED_D)
+    g = bucket_slice(flat_g, layout, b)
+    ef = ErrorFeedback(EMBED_D, device=dev)
+    bound = 0.5 * float(g.norm())
+    drop = tier_drop_fn()
+    k = max(1, min(EMBED_D, int(round(TIER_KEEP * EMBED_D))))
+    total_in = torch.zeros(EMBED_D, dtype=torch.float64, device=dev)
+    total_out = torch.zeros_like(total_in)
+    rounds = []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk, delivered = ef.compress(g, keep=TIER_KEEP, bound=bound,
+                                       drop_mask=drop(k))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total_in += g.to(torch.float64)
+        total_out += delivered.to(torch.float64)
+        resid = float(ef.residual.norm())
+        check(resid <= bound * (1 + 1e-4),
+              f"error feedback round {r}: residual {resid} > {bound}")
+        rounds.append({"s": secs, "residual_norm": resid,
+                       "flushed": chunk.flushed,
+                       "dropped": int((chunk.idx < 0).sum())})
+    gap = total_in - (total_out + ef.residual.to(torch.float64))
+    lim = 1e-3 * max(1.0, float(total_in.abs().max()))
+    emit({"phase": "tiers", "config": "error_feedback", "D": EMBED_D,
+          "k": k, "bound": bound, "rounds": rounds,
+          "flushed_total": ef.flushed_total,
+          "max_abs_gap": float(gap.abs().max()), "gap_limit": lim})
+    check(float(gap.abs().max()) <= lim,
+          f"error feedback: delivered + residual off by {float(gap.abs().max())}")
+
+
+def phase_reduced_tier_parity():
+    """The reduced qwen2-0.5b's f32 gradient (one forward and backward on
+    the CPU) reduced through the four non-host tiers with 1 KiB buckets on
+    the card (kernels) and on the CPU (plain versions), from the same
+    tensor: ``torch.equal``, since integer sums are exact, the tie rule is
+    fixed, the quantizers are bit-equal and the scatter adds one value per
+    column."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.collectives import mlfabric_grad_reduce, plan_reduce
+    from repro_torch.launch import make_host_mesh, make_mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(FULL_ARCH).reduced()
+    params = build_model(cfg, dtype=torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        cfg.vocab_size, 32, seed=0).batch(0, 4).items()}
+    _, grads = value_and_grad(params, batch, cfg, remat=False)
+    meshes = {"card": make_host_mesh(device=dev),
+              "cpu": make_mesh((1, 1), ("pod", "data"), device="cpu")}
+    inputs = {"cpu": grads, "card": tree_map(lambda g: g.to(dev), grads)}
+    n_buckets = len(plan_reduce(grads, bucket_bytes=1024).buckets)
+    for name in ("switch", "hierarchical", "keep", "switch_keep"):
+        out = {}
+        for where in ("card", "cpu"):
+            zero_launches()
+            out[where] = (tree_leaves(mlfabric_grad_reduce(
+                inputs[where], mesh=meshes[where], inter_axis="pod",
+                bucket_bytes=1024, **tier_kwargs(name))), ops_launches())
+        (card, launched), (cpu, _) = out["card"], out["cpu"]
+        equal = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+        worst = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(card, cpu))
+        emit({"phase": "reduced_tier_parity", "config": name,
+              "buckets": n_buckets, "launches": launched,
+              "card_equals_cpu": equal, "max_abs_diff": worst})
+        check(launched == tier_launches(name, n_buckets),
+              f"reduced tier {name}: launched {launched}")
+        check(equal, f"reduced tier {name}: card and CPU differ by {worst}")
 
 
 _RANKS_SCRIPT = textwrap.dedent("""
@@ -862,6 +1339,53 @@ _RANKS_SCRIPT = textwrap.dedent("""
                          float((a - b).abs().max()) for a, b in zip(pa, p)),
                      "close": close, "moved": moved,
                      "ok": abs(l - la) <= 1e-5 * abs(la) and close and moved}
+
+    # the switch and bounded-loss tiers on this world: the gradients of
+    # tests/test_dist_path.py's collectives check, one row per rank; the
+    # kernels run at N=2 (members of a pod, pods)
+    import functools, hashlib
+    import numpy as np
+    from repro_torch.core.network import LossSchedule
+    rng = np.random.default_rng(0)
+    g_all = {k: rng.normal(size=(world,) + s).astype(np.float32)
+             for k, s in (("w1", (33, 7)), ("w2", (512,)), ("bias", (5,)),
+                          ("big", (3000,)))}
+    mine = {k: torch.from_numpy(v[rank].copy()).cuda()
+            for k, v in g_all.items()}
+    sched = LossSchedule()
+    sched.set_drop("pod0", 0.0, 0.25, direction="up")
+    drop = functools.partial(col.loss_drop_mask, sched, "pod0", "pod1", 0.0)
+    rows_seen = []
+    for op in ("switch_sum_op", "scatter_aggregate_op"):
+        def rec(*a, _orig=getattr(col, op), _op=op, **kw):
+            rows_seen.append((_op, int(a[0].shape[0])))
+            return _orig(*a, **kw)
+        setattr(col, op, rec)
+    res["tiers"] = {}
+    for name, kw in {"switch": dict(backend="switch"),
+                     "hierarchical": dict(backend="hierarchical"),
+                     "keep": dict(keep_inter=0.1,
+                                  drop_mask_inter=drop)}.items():
+        rows_seen.clear()
+        ops.switch_sum_op.launches = 0
+        ops.scatter_aggregate_op.launches = 0
+        got = col.mlfabric_grad_reduce(mine, mesh=mesh, inter_axis="pod",
+                                       mean_over=world, **kw)
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        flat = np.concatenate([got[k].ravel() for k in sorted(got)])
+        err = {k: float(np.abs(got[k] - g_all[k].mean(0)).max())
+               for k in got}
+        res["tiers"][name] = {
+            "sha256": hashlib.sha256(flat.tobytes()).hexdigest(),
+            "finite": bool(np.isfinite(flat).all()),
+            "max_abs_err_vs_mean": max(err.values()),
+            "within_5e-2": all(bool(np.all(
+                np.abs(got[k] - g_all[k].mean(0))
+                <= 5e-2 + 5e-2 * np.abs(g_all[k].mean(0)))) for k in got),
+            "launches": {"switch_sum": ops.switch_sum_op.launches,
+                         "scatter_aggregate":
+                             ops.scatter_aggregate_op.launches},
+            "rows": sorted(set(rows_seen))}
     print(json.dumps(res), flush=True)
 """)
 
@@ -872,7 +1396,11 @@ def phase_mlfabric_ranks():
     ``overlap_chunks=2`` against the auto step on every rank.  Loss within
     rtol 1e-5; params within rtol 1e-4 / atol 1e-6 (the CPU test's f32
     tolerance against JAX), plus ``lr`` x one int8 step per pod compressed;
-    every leaf the auto step moved must move."""
+    every leaf the auto step moved must move.  Then ``mlfabric_grad_reduce``
+    with the switch, hierarchical and keep_inter tiers on the same world:
+    every rank the same result, switch and hierarchical within the CPU
+    test's 5e-2 of the numpy mean, and switch_sum and scatter_aggregate
+    launched at N=2 on every rank."""
     from repro_torch.launch import run_local_world
 
     src = str(Path(__file__).resolve().parent / "src")
@@ -887,6 +1415,21 @@ def phase_mlfabric_ranks():
         check(r["mlfabric"]["launches"]["grad_aggregate"] >= 1
               and r["compressed"]["launches"]["dequant_aggregate"] >= 1,
               f"rank {r['rank']}: the kernels did not run: {r}")
+        t = r["tiers"]
+        for name in t:
+            check(t[name]["finite"], f"rank {r['rank']} tier {name}")
+            check(t[name]["sha256"] == res[0]["tiers"][name]["sha256"],
+                  f"tier {name}: rank {r['rank']} differs from rank 0")
+        for name in ("switch", "hierarchical"):
+            check(t[name]["within_5e-2"],
+                  f"rank {r['rank']} tier {name}: {t[name]}")
+            check(t[name]["launches"]["switch_sum"] >= 1
+                  and t[name]["rows"] == [["switch_sum_op", 2]],
+                  f"rank {r['rank']} tier {name}: switch_sum at N=2 did "
+                  f"not run: {t[name]}")
+        check(t["keep"]["launches"]["scatter_aggregate"] >= 1
+              and t["keep"]["rows"] == [["scatter_aggregate_op", 2]],
+              f"rank {r['rank']}: scatter_aggregate at N=2 did not run")
 
 
 def main() -> int:
@@ -906,22 +1449,23 @@ def main() -> int:
     phase_reduced_parity()
     launches = phase_main_path()
     phase_reduced_step_parity()
+    phase_reduced_tier_parity()
     step_launches = phase_mlfabric_step()
+    tier_launches_ = phase_tiers()
     phase_mlfabric_ranks()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    total = {k: launches.get(k, 0) + step_launches[k] for k in step_launches}
+    by_path = {"main_path": launches, "mlfabric_step": step_launches,
+               "tiers": tier_launches_}
+    total = {k: sum(p.get(k, 0) for p in by_path.values()) for k in KERNELS}
     for k, n in total.items():
         check(n > 0, f"{k} was not launched on the main paths")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "launches_by_path": {"main_path": launches,
-                               "mlfabric_step": step_launches}})
+          "launches_by_path": by_path})
     emit({"kernels": [{key: {**rows[k], "launches": total[k]}[key]
-                       for key in keys}
-                      for k in ("quantize", "dequant_aggregate",
-                                "grad_aggregate")]})
+                       for key in keys} for k in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -1,11 +1,13 @@
-"""Flat-bucket layout and the flat int8 wire round-trip (dense half).
+"""Flat-bucket layout, the flat int8 wire round-trip, and the bounded-loss
+wire format.
 
 The control plane schedules whole *buckets* (paper §4: updates are the unit
 of transfer), so the data plane moves each bucket as one contiguous array.
 The planners are pure Python, copied from ``repro/dist/flatbuf.py`` (that
 module imports JAX at the top); ``pack_leaves``, ``bucket_slice``,
 ``unpack_bucket`` and ``flat_compress_roundtrip`` are its data movements in
-PyTorch.
+PyTorch.  The sparse half (§12) is ``topk_sparsify``, ``sparse_quantize``,
+``SparseChunk`` and the per-sender ``ErrorFeedback`` compressor.
 
 Leaf order is the reference's sorted-key order (``repro_torch.tree``): the
 layout, the per-leaf padding and hence every quantization block depend on
@@ -15,11 +17,12 @@ it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..device import DeviceLike, resolve_device
 from ..tree import tree_flatten, tree_unflatten
 
 Params = Any
@@ -189,3 +192,152 @@ def flat_compress_roundtrip(tree: Params, *, block: int = 256
         off += leaf.numel() + (-leaf.numel() % block)
     norm = torch.sqrt(ssq)
     return tree_unflatten(treedef, out), float(norm)
+
+
+# --------------------------------------------------------------------------- #
+# bounded-loss wire format: top-k sparsification + error feedback (§12)
+# --------------------------------------------------------------------------- #
+_INV_127 = 1.0 / 127.0
+
+
+def topk_sparsify(vec: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """|.|-top-k of a flat vector -> (idx int32 [k], vals f32 [k]), largest
+    first.  Equal magnitudes come lower index first, as ``jax.lax.top_k``
+    orders them (``torch.topk`` promises no order for ties); the order
+    decides which slots a drop mask hits, so it is part of the wire."""
+    x = vec.to(torch.float32)
+    _, order = torch.sort(x.abs(), descending=True, stable=True)
+    idx = order[:k]
+    return idx.to(torch.int32), x[idx]
+
+
+def int8_scale(amax: torch.Tensor, *, reciprocal: bool = False
+               ) -> torch.Tensor:
+    """The int8 scale of a chunk whose largest magnitude is ``amax``:
+    ``amax / 127``, floored at 1e-30 like ``quantize_ref``.
+
+    The reference computes ``amax / 127.0`` in two ways: eagerly (as
+    ``ErrorFeedback.compress`` runs it) a division, and under ``jit`` (as the
+    switch and sparse cross-pod stages run it) a multiply by f32(1/127),
+    which XLA substitutes; the two differ in the last bit of some scales.
+    ``reciprocal=True`` gives the jitted one."""
+    if reciprocal:
+        scale = amax * torch.full((), _INV_127, dtype=torch.float32,
+                                  device=amax.device)
+    else:
+        # a tensor divisor: on the card PyTorch turns division by a Python
+        # scalar into a multiply by its reciprocal
+        scale = amax / torch.full((), 127.0, dtype=torch.float32,
+                                  device=amax.device)
+    return torch.clamp_min(scale, 1e-30)
+
+
+def encode_int8(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round_half_even(v / scale), -127, 127)`` as int8; ``v /
+    scale`` is a division in the reference both eagerly and under
+    ``jit``."""
+    return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+
+
+def sparse_quantize(vals: torch.Tensor, *, reciprocal: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize one sparse chunk's values with a single scale
+    (``int8_scale`` of max|vals|; ``reciprocal=True`` as under ``jit``)."""
+    v = vals.to(torch.float32)
+    scale = int8_scale(v.abs().max(), reciprocal=reciprocal)
+    return encode_int8(v, scale), scale
+
+
+def drop_slots(idx: torch.Tensor, drop_mask: Any) -> torch.Tensor:
+    """``idx`` with the slots the transport dropped set to -1.  ``drop_mask``
+    (bool, True = dropped) is cut to ``len(idx)``; a short one leaves the
+    remaining slots alive."""
+    k = idx.shape[0]
+    drop = torch.as_tensor(drop_mask, dtype=torch.bool,
+                           device=idx.device).ravel()[:k]
+    if drop.shape[0] < k:
+        drop = torch.cat([drop, drop.new_zeros(k - drop.shape[0])])
+    return torch.where(drop, -1, idx)
+
+
+@dataclass(frozen=True)
+class SparseChunk:
+    """One sender's bounded-loss wire payload for a flat bucket.
+
+    ``idx`` entries of -1 mark slots the transport dropped (the receiver's
+    scatter kernel treats them as zero contribution); ``q``/``scale`` are
+    the surviving int8 values.  ``flushed`` counts coordinates the sender
+    had to force-deliver reliably to honor its residual bound.
+    """
+
+    idx: torch.Tensor       # int32 [k]; -1 = transport-dropped slot
+    q: torch.Tensor         # int8 [k]
+    scale: torch.Tensor     # f32 []
+    flushed: int = 0
+
+
+class ErrorFeedback:
+    """Per-sender error-feedback compressor for the bounded-loss tier.
+
+    ``compress`` adds the carried residual, selects the top-k coordinates,
+    applies the transport's drop pattern, int8-quantizes the survivors and
+    keeps ``residual = x - delivered``.  The open-loop bound "residual
+    shrinks by the top-k mass" is false under adversarial drops (losing the
+    single largest coordinate keeps nearly all the mass), so the bound is
+    *enforced*: while ``||residual|| > bound`` the largest residual
+    coordinates are flushed exactly (the transport's reliable-retransmit
+    path) and counted in ``flushed_total``.  ``||residual|| <= bound``
+    therefore holds after every call.  The state lives on ``device``: the
+    card unless the caller names another.
+    """
+
+    def __init__(self, dim: int, *, device: DeviceLike = None):
+        self.dim = int(dim)
+        self.device = resolve_device(device)
+        self.residual = torch.zeros(self.dim, dtype=torch.float32,
+                                    device=self.device)
+        self.flushed_total = 0
+
+    def compress(self, vec: Any, *, keep: float,
+                 bound: Optional[float] = None, drop_mask: Any = None
+                 ) -> Tuple[SparseChunk, torch.Tensor]:
+        """-> (wire chunk, exactly-delivered dense contribution).
+
+        ``keep`` is the top-k fraction; ``drop_mask`` (bool, >= k long,
+        True = dropped) is the transport's loss pattern over the k selected
+        slots; ``bound`` is the phase-aware residual-norm ceiling (None =
+        accept any residual).  The dense return includes both the lossy
+        scatter contribution and any bound-enforcement flushes, i.e. it is
+        exactly what the aggregate will contain for this sender.
+        """
+        if not (0.0 < keep <= 1.0):
+            raise ValueError(f"keep must be in (0, 1]: {keep}")
+        x = torch.as_tensor(vec, device=self.device).to(torch.float32) \
+            + self.residual
+        d = self.dim
+        k = max(1, min(d, int(round(keep * d))))
+        idx, vals = topk_sparsify(x, k)
+        if drop_mask is not None:
+            idx = drop_slots(idx, drop_mask)
+        q, scale = sparse_quantize(vals)
+        live = idx >= 0
+        deq = torch.where(live, q.to(torch.float32) * scale, 0.0)
+        delivered = torch.zeros(d, dtype=torch.float32, device=self.device)
+        delivered.index_add_(0, torch.where(live, idx, 0).to(torch.int64),
+                             deq)
+        residual = x - delivered
+        flushed = 0
+        if bound is not None:
+            # terminates in <= ceil(d/k) rounds: each zeroes k more
+            # coordinates of the residual
+            while float(torch.sqrt(torch.sum(residual * residual))) > bound:
+                fi, fv = topk_sparsify(residual, k)
+                fi = fi.to(torch.int64)
+                delivered.index_add_(0, fi, fv)
+                residual[fi] = 0.0
+                flushed += k
+        self.residual = residual
+        self.flushed_total += flushed
+        return SparseChunk(idx=idx, q=q, scale=scale,
+                           flushed=flushed), delivered

@@ -30,7 +30,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"quantize": "quantize.cu",
            "dequant_aggregate": "dequant_aggregate.cu",
-           "grad_aggregate": "grad_aggregate.cu"}
+           "grad_aggregate": "grad_aggregate.cu",
+           "switch_sum": "switch_sum.cu",
+           "scatter_aggregate": "scatter_aggregate.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

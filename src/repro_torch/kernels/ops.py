@@ -17,6 +17,8 @@ import torch
 from .dequant_aggregate import dequant_aggregate, dequant_aggregate_plain
 from .grad_aggregate import grad_aggregate, grad_aggregate_plain
 from .quantize import quantize, quantize_plain
+from .scatter_aggregate import scatter_aggregate, scatter_aggregate_plain
+from .switch_sum import switch_sum, switch_sum_plain
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -69,6 +71,33 @@ def grad_aggregate_op(updates: torch.Tensor, weights: torch.Tensor
     return grad_aggregate_plain(updates, weights)
 
 
+def switch_sum_op(q: torch.Tensor, *, window: int = 256,
+                  orig_len: Optional[int] = None) -> torch.Tensor:
+    """In-network switch aggregation: the pod's int8 payloads [N, D_pad]
+    (one shared scale, D_pad a whole number of ``window`` slots) -> exact
+    int32 sums [orig_len or D_pad]."""
+    if _route(q, "switch_sum_op"):
+        out = switch_sum(q, window=window, orig_len=orig_len)
+        switch_sum_op.launches += 1
+        return out
+    return switch_sum_plain(q, window=window, orig_len=orig_len)
+
+
+def scatter_aggregate_op(idx: torch.Tensor, q: torch.Tensor,
+                         scales: torch.Tensor, weights: torch.Tensor, *,
+                         d_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse receive path of the bounded-loss tier: scatter-add N top-k
+    int8 chunks (idx [N, K] int32, -1 = dropped slot) into the dense bucket
+    -> (agg f32 [d_out], ||agg||^2), with no dense buffer per sender."""
+    if _route(idx, "scatter_aggregate_op"):
+        out = scatter_aggregate(idx, q, scales, weights, d_out=d_out)
+        scatter_aggregate_op.launches += 1
+        return out
+    return scatter_aggregate_plain(idx, q, scales, weights, d_out=d_out)
+
+
 quantize_op.launches = 0
 dequant_aggregate_op.launches = 0
 grad_aggregate_op.launches = 0
+switch_sum_op.launches = 0
+scatter_aggregate_op.launches = 0

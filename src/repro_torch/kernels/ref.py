@@ -2,11 +2,11 @@
 for the kernels this port carries so far.
 
 They keep the oracles' own arithmetic: ``quantize_ref`` divides by 127
-(the jitted main path multiplies by its f32 reciprocal, see ``quantize.py``)
-and ``dequant_aggregate_ref`` and ``grad_aggregate_ref`` sum the rows
-with one ``einsum``.  The tests
-hold them against the JAX oracles, and the kernels' plain versions against
-them.
+(the jitted main path multiplies by its f32 reciprocal, see ``quantize.py``),
+``dequant_aggregate_ref`` and ``grad_aggregate_ref`` sum the rows with one
+``einsum``, and ``scatter_aggregate_ref`` forms ``(q * scale) * w`` (the
+kernel forms ``q * (scale * w)``).  The tests hold them against the JAX
+oracles, and the kernels' plain versions against them.
 """
 
 from __future__ import annotations
@@ -51,3 +51,32 @@ def quantize_ref(x: torch.Tensor, *, block: int = 256
     scale = torch.clamp_min(xb.abs().amax(dim=1) / div, 1e-30)
     q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
     return q.to(torch.int8).reshape(d), scale
+
+
+def scatter_aggregate_ref(idx: torch.Tensor, q: torch.Tensor,
+                          scales: torch.Tensor, weights: torch.Tensor, *,
+                          d_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense scatter-add oracle for the sparse receive path.
+
+    idx: [N, K] int32 (negative or >= d_out -> dropped slot); q: [N, K]
+    int8; scales, weights: [N] -> (agg f32 [d_out], sumsq [] f32).
+    """
+    vals = (q.to(torch.float32) * scales[:, None].to(torch.float32)
+            * weights[:, None].to(torch.float32))
+    valid = (idx >= 0) & (idx < d_out)
+    vals = torch.where(valid, vals, 0.0)
+    safe = torch.where(valid, idx, 0).to(torch.int64)
+    agg = torch.zeros(d_out, dtype=torch.float32, device=q.device)
+    agg.index_put_((safe.ravel(),), vals.ravel(), accumulate=True)
+    return agg, torch.sum(agg * agg)
+
+
+def switch_sum_ref(q: torch.Tensor, *,
+                   orig_len: Optional[int] = None) -> torch.Tensor:
+    """Fixed-point switch aggregation oracle (overflow-widened).
+
+    q: [N, D_pad] int8 (members quantized with one shared scale)
+    -> int32 sums [orig_len or D_pad].
+    """
+    s = torch.sum(q.to(torch.int32), dim=0, dtype=torch.int32)
+    return s[:orig_len] if orig_len is not None else s

@@ -10,7 +10,11 @@ package, so it runs on a card host that has only PyTorch:
 The kernels round each product and sum one at a time in the plain
 versions' order, so agreement is bit for bit (sums of squares rtol 1e-5:
 per-block partials summed in another order), also on views that start off
-alignment, as the buckets of the in-graph step do.
+alignment, as the buckets of the in-graph step do.  ``switch_sum`` is exact
+integer arithmetic; ``scatter_aggregate`` is bit-equal where each sender's
+indices are distinct (the top-k chunks of the path), and where one sender
+repeats an index its atomic adds meet in an order that varies from run to
+run: within 2 m 2^-24 sum|v| of the plain version per column, for m adds.
 """
 
 import os
@@ -24,6 +28,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
 from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
 from repro_torch.kernels.quantize import quantize_plain
+from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
+from repro_torch.kernels.switch_sum import switch_sum_plain
 
 
 def _x(d, seed=0, scale=1.0):
@@ -159,3 +165,96 @@ class TestOnCard:
             ops.grad_aggregate_op(torch.zeros((2, 8), device="cuda"),
                                   torch.ones(2, dtype=torch.float64,
                                              device="cuda"))
+
+    @pytest.mark.parametrize("n,d_pad,orig_len", [
+        (1, 256, None), (2, 4096, 4000), (11, 2048, None),
+        (4, 256 * 4099, 256 * 4099 - 13), (1, 28672, 28544)])
+    def test_switch_sum_kernel_bitwise(self, n, d_pad, orig_len):
+        _need_card()
+        rng = np.random.default_rng(n * d_pad)
+        q = torch.from_numpy(rng.integers(-127, 128, size=(n, d_pad),
+                                          dtype=np.int8)).cuda()
+        before = ops.switch_sum_op.launches
+        got = ops.switch_sum_op(q, orig_len=orig_len)
+        assert ops.switch_sum_op.launches == before + 1
+        want = switch_sum_plain(q, orig_len=orig_len)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+    def test_switch_sum_kernel_overflow_widening(self):
+        _need_card()
+        got = ops.switch_sum_op(torch.full((300, 512), 127, dtype=torch.int8,
+                                           device="cuda"))
+        assert int(got.min()) == int(got.max()) == 38100
+
+    @pytest.mark.parametrize("n,k,d,unit", [
+        (1, 1000, 5000, True), (2, 4096, 2 ** 16 + 3, True),
+        (4, 777, 10_000, False), (3, 5, 7, False)])
+    def test_scatter_aggregate_kernel_bitwise(self, n, k, d, unit):
+        """Distinct indices within each sender, 25% dropped (-1) and a few
+        past d_out: bit-equal."""
+        _need_card()
+        rng = np.random.default_rng(n * k)
+        idx = np.stack([rng.choice(d + 3, size=min(k, d + 3), replace=False)
+                        for _ in range(n)]).astype(np.int32)
+        idx[rng.random(idx.shape) < 0.25] = -1
+        q = rng.integers(-127, 128, size=idx.shape).astype(np.int8)
+        s = rng.uniform(1e-3, 2.0, size=n).astype(np.float32)
+        w = (np.ones(n, np.float32) if unit
+             else rng.uniform(0.5, 1.5, size=n).astype(np.float32))
+        args = [torch.from_numpy(a).cuda() for a in (idx, q, s, w)]
+        before = ops.scatter_aggregate_op.launches
+        ak, ssk = ops.scatter_aggregate_op(*args, d_out=d)
+        assert ops.scatter_aggregate_op.launches == before + 1
+        ap, ssp = scatter_aggregate_plain(*args, d_out=d)
+        torch.cuda.synchronize()
+        assert ak.shape == (d,) and torch.equal(ak, ap)
+        np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
+
+    def test_scatter_aggregate_kernel_duplicates(self):
+        _need_card()
+        rng = np.random.default_rng(3)
+        idx = rng.integers(0, 50, size=(4, 3000)).astype(np.int32)
+        q = rng.integers(-127, 128, size=(4, 3000)).astype(np.int8)
+        s = rng.uniform(1e-3, 2.0, size=4).astype(np.float32)
+        w = rng.uniform(0.5, 1.5, size=4).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (idx, q, s, w)]
+        ak, ssk = ops.scatter_aggregate_op(*args, d_out=64)
+        ap, ssp = scatter_aggregate_plain(*args, d_out=64)
+        v = np.abs(q.astype(np.float64) * (s * w)[:, None])
+        absum = np.bincount(idx.ravel(), v.ravel(), minlength=64)
+        m = np.bincount(idx.ravel(), minlength=64).max()
+        assert np.all(np.abs(ak.cpu().numpy() - ap.cpu().numpy())
+                      <= 2 * m * 2.0 ** -24 * absum)
+        np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
+
+    def test_slice_four_kernels_refuse_what_they_do_not_take(self):
+        _need_card()
+        with pytest.raises(ValueError, match="int8"):
+            ops.switch_sum_op(torch.zeros((2, 256), dtype=torch.int32,
+                                          device="cuda"))
+        with pytest.raises(ValueError, match="window"):
+            ops.switch_sum_op(torch.zeros((2, 300), dtype=torch.int8,
+                                          device="cuda"))
+        buf = torch.zeros(2 * 256 + 1, dtype=torch.int8, device="cuda")
+        with pytest.raises(ValueError, match="aligned"):
+            ops.switch_sum_op(buf[1:].view(2, 256))
+        with pytest.raises(ValueError, match="aligned"):
+            ops.switch_sum_op(torch.zeros((2, 6), dtype=torch.int8,
+                                          device="cuda"), window=2)
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.switch_sum_op(torch.zeros((256, 2), dtype=torch.int8,
+                                          device="cuda").T, window=2)
+        idx = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+        q = torch.ones((2, 4), dtype=torch.int8, device="cuda")
+        one = torch.ones(2, device="cuda")
+        with pytest.raises(ValueError):
+            ops.scatter_aggregate_op(idx.long(), q, one, one, d_out=8)
+        with pytest.raises(ValueError):
+            ops.scatter_aggregate_op(idx, q, one.double(), one, d_out=8)
+        with pytest.raises(ValueError):
+            ops.scatter_aggregate_op(idx, q, one.cpu(), one, d_out=8)
+        with pytest.raises(ValueError):
+            ops.scatter_aggregate_op(
+                torch.zeros((4, 2), dtype=torch.int32, device="cuda").T, q,
+                one, one, d_out=8)

@@ -10,6 +10,14 @@ in the reference, per 1024-column block here).  The bucket views of the
 in-graph step's reduction (``bucket_slice``, ``unpack_bucket``) are
 compared element for element, and a quantized bucket that starts off
 alignment bit for bit.
+
+The sparse half (bounded-loss wire): ``topk_sparsify`` gives JAX's indices
+exactly, ties lower index first; ``sparse_quantize`` matches JAX bit for bit
+both eagerly (a division by 127) and under ``jit`` (a multiply by
+f32(1/127)), and the q bits show that ``vals / scale`` stays a division under
+``jit``; ``ErrorFeedback`` gives the same chunk, delivered vector, residual
+and ``flushed_total`` bit for bit (the residual norm compared with the bound
+is summed in another order, which could flip only an exact tie).
 """
 
 import dataclasses
@@ -172,3 +180,154 @@ def test_quantize_op_on_unaligned_slice_matches_jax(k):
         qj, sj = j_quantize_op(jnp.asarray(flat[k:k + n]))
         np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+# --------------------------------------------------------------------------- #
+# bounded-loss wire format
+# --------------------------------------------------------------------------- #
+def _tied(n=3000, seed=0):
+    """Many equal magnitudes of both signs: bf16-like gradients tie often at
+    the top-k boundary."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-40, 41, size=n).astype(np.float32) * np.float32(0.125)
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 100, 1499, 3000])
+def test_topk_sparsify_matches_jax_with_ties(k):
+    x = _tied()
+    ji, jv = jflat.topk_sparsify(jnp.asarray(x), k)
+    ti, tv = tflat.topk_sparsify(torch.from_numpy(x), k)
+    assert ti.dtype == torch.int32 and tv.dtype == torch.float32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_topk_tie_rule_is_lower_index_first():
+    ti, _ = tflat.topk_sparsify(torch.tensor([1.0, 3.0, -3.0, 2.0, 3.0]), 2)
+    assert ti.tolist() == [1, 2]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sparse_quantize_matches_jax_eager_and_jitted(seed):
+    rng = np.random.default_rng(seed)
+    scales_differ = 0
+    for i in range(200):
+        v = (rng.standard_normal(97) * rng.exponential()).astype(np.float32)
+        qe, se = jflat.sparse_quantize(jnp.asarray(v))
+        qj, sj = jax.jit(jflat.sparse_quantize)(jnp.asarray(v))
+        tqe, tse = tflat.sparse_quantize(torch.from_numpy(v))
+        tqj, tsj = tflat.sparse_quantize(torch.from_numpy(v),
+                                         reciprocal=True)
+        assert float(tse) == float(se) and float(tsj) == float(sj)
+        np.testing.assert_array_equal(tqe.numpy(), np.asarray(qe))
+        np.testing.assert_array_equal(tqj.numpy(), np.asarray(qj))
+        scales_differ += float(se) != float(sj)
+    assert scales_differ > 0     # the two roundings really do differ
+
+
+def test_sparse_quantize_all_zero_chunk():
+    q, s = tflat.sparse_quantize(torch.zeros(5))
+    assert float(s) == np.float32(1e-30) and not q.any()
+
+
+def _ef_inputs(seed, dim, steps):
+    rng = np.random.default_rng(seed)
+    gs = [(rng.standard_normal(dim) * rng.exponential(2.0))
+          .astype(np.float32) for _ in range(steps)]
+    gs[1][rng.integers(dim)] *= 50.0          # a spike: forces flushes
+    return rng, gs
+
+
+@pytest.mark.parametrize("keep,drop_rate,bound_frac,short", [
+    (0.1, 0.25, 0.5, False), (0.3, 0.6, 0.2, False), (1.0, 0.0, None, False),
+    (0.05, 0.9, 1.0, True)])
+def test_error_feedback_matches_jax(keep, drop_rate, bound_frac, short):
+    dim, steps = 500, 4
+    rng, gs = _ef_inputs(7, dim, steps)
+    jef, tef = jflat.ErrorFeedback(dim), tflat.ErrorFeedback(dim,
+                                                             device="cpu")
+    for g in gs:
+        k = max(1, min(dim, int(round(keep * dim))))
+        drop = rng.random(k - 3 if short else k) < drop_rate
+        bound = (None if bound_frac is None
+                 else bound_frac * float(np.linalg.norm(g)))
+        jc, jd = jef.compress(g, keep=keep, bound=bound, drop_mask=drop)
+        tc, td = tef.compress(torch.from_numpy(g), keep=keep, bound=bound,
+                              drop_mask=drop)
+        np.testing.assert_array_equal(tc.idx.numpy(), np.asarray(jc.idx))
+        np.testing.assert_array_equal(tc.q.numpy(), np.asarray(jc.q))
+        assert float(tc.scale) == float(jc.scale)
+        assert tc.flushed == jc.flushed
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(tef.residual.numpy(),
+                                      np.asarray(jef.residual))
+    assert tef.flushed_total == jef.flushed_total
+    if bound_frac is not None and bound_frac <= 0.5:
+        assert tef.flushed_total > 0
+
+
+def test_error_feedback_validation_and_no_bound():
+    ef = tflat.ErrorFeedback(64, device="cpu")
+    with pytest.raises(ValueError):
+        ef.compress(torch.zeros(64), keep=0.0)
+    g = torch.zeros(64)
+    g[0] = 100.0
+    chunk, _ = ef.compress(g, keep=1.0 / 64, drop_mask=np.asarray([True]))
+    assert chunk.flushed == 0 and chunk.idx.tolist() == [-1]
+    assert float(ef.residual.norm()) == pytest.approx(100.0)
+
+
+try:
+    import hypothesis.strategies as st
+    from hypothesis import given, settings
+except ImportError:              # the properties skip without hypothesis
+    st = None
+
+
+if st is not None:
+    @settings(max_examples=25, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), keep=st.floats(0.05, 1.0),
+           drop_rate=st.floats(0.0, 0.9), bound_frac=st.floats(0.05, 2.0),
+           n_steps=st.integers(1, 8), spike=st.booleans())
+    def test_port_residual_never_exceeds_bound(seed, keep, drop_rate,
+                                               bound_frac, n_steps, spike):
+        """Twin of tests/test_loss_tolerant.py's first property: after
+        every compress, ||residual|| <= bound."""
+        dim = 64
+        rng = np.random.default_rng(seed)
+        ef = tflat.ErrorFeedback(dim, device="cpu")
+        for _ in range(n_steps):
+            g = (rng.standard_normal(dim)
+                 * rng.exponential(scale=2.0)).astype(np.float32)
+            if spike:
+                g[rng.integers(dim)] *= 50.0
+            bound = bound_frac * float(np.linalg.norm(g)) + 1e-6
+            k = max(1, min(dim, int(round(keep * dim))))
+            ef.compress(torch.from_numpy(g), keep=keep, bound=bound,
+                        drop_mask=rng.random(k) < drop_rate)
+            assert float(ef.residual.norm()) <= bound * (1 + 1e-4)
+
+    @settings(max_examples=25, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), keep=st.floats(0.1, 1.0),
+           drop_rate=st.floats(0.0, 0.8), n_steps=st.integers(1, 8))
+    def test_port_delivered_plus_residual_conserves_mass(seed, keep,
+                                                         drop_rate, n_steps):
+        """Twin of the second property: sum(delivered) + residual equals
+        the sum of the inputs, at that test's tolerance."""
+        dim = 64
+        rng = np.random.default_rng(seed)
+        ef = tflat.ErrorFeedback(dim, device="cpu")
+        total_in = np.zeros(dim, np.float64)
+        total_out = np.zeros(dim, np.float64)
+        for _ in range(n_steps):
+            g = rng.standard_normal(dim).astype(np.float32)
+            k = max(1, min(dim, int(round(keep * dim))))
+            _, delivered = ef.compress(
+                torch.from_numpy(g), keep=keep,
+                bound=float(np.linalg.norm(g)),
+                drop_mask=rng.random(k) < drop_rate)
+            total_in += g.astype(np.float64)
+            total_out += delivered.numpy().astype(np.float64)
+        gap = total_in - (total_out + ef.residual.numpy().astype(np.float64))
+        assert np.abs(gap).max() <= 1e-3 * max(1.0, np.abs(total_in).max())

@@ -17,6 +17,12 @@ Tolerances:
   and the port's in-order row loop round in different orders; the sum of
   squares rtol 1e-5 (per-tile partials summed in different orders).
 * grad_aggregate: see ``TestGradAggregate``.
+* switch_sum: bit-equal (integer sums are exact in any order).
+* scatter_aggregate: agg bit-equal where each sender's indices are distinct
+  (one addition per column per sender, senders in order, and the Pallas
+  one-hot product adds only exact zeros beside it; signed zeros compare
+  equal); duplicates within one sender rtol 1e-6 (the Pallas dot sums them
+  in its own order); the sum of squares rtol 1e-5.
 """
 
 import jax.numpy as jnp
@@ -29,10 +35,14 @@ from repro.kernels import ref as jref
 from repro.kernels.dequant_aggregate import dequant_aggregate as j_dequant_aggregate
 from repro.kernels.grad_aggregate import grad_aggregate as j_grad_aggregate
 from repro.kernels.quantize import quantize as j_quantize
+from repro.kernels.scatter_aggregate import scatter_aggregate as j_scatter
+from repro.kernels.switch_sum import switch_sum as j_switch_sum
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
 from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
 from repro_torch.kernels.quantize import quantize_plain
+from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
+from repro_torch.kernels.switch_sum import switch_sum_plain
 
 
 def _x(d, seed=0, scale=1.0):
@@ -292,3 +302,203 @@ class TestGradAggregateRouting:
         with pytest.raises(ValueError, match="no kernel"):
             ops.grad_aggregate_op(torch.zeros((2, 256), device="meta"),
                                   torch.ones(2, device="meta"))
+
+
+# --------------------------------------------------------------------------- #
+# switch_sum
+# --------------------------------------------------------------------------- #
+def _int8_rows(n, d, seed=0):
+    return np.random.default_rng(seed).integers(-127, 128, size=(n, d),
+                                                dtype=np.int8)
+
+
+class TestSwitchSum:
+    @pytest.mark.parametrize("n,d_pad,orig_len,window,block_d,chunk_n", [
+        (1, 256, None, 256, 2048, 8),        # one member, one window
+        (11, 2048, None, 256, 2048, 8),      # ragged member chunk
+        (7, 2048, 2000, 256, 512, 4),        # ragged orig_len, D tiles
+        (300, 1024, None, 256, 2048, 8),     # deep fan-in
+        (16, 256, 200, 128, 2048, 16),       # non-default window
+    ])
+    def test_plain_matches_pallas_bitwise(self, n, d_pad, orig_len, window,
+                                          block_d, chunk_n):
+        q = _int8_rows(n, d_pad, seed=n)
+        got = ops.switch_sum_op(torch.from_numpy(q), window=window,
+                                orig_len=orig_len)
+        want = j_switch_sum(jnp.asarray(q), window=window, block_d=block_d,
+                            chunk_n=chunk_n, orig_len=orig_len,
+                            interpret=True)
+        assert got.dtype == torch.int32
+        assert got.shape == (orig_len or d_pad,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_overflow_widening(self):
+        """300 members at +127 sum to 38,100: past int8 and int16 lanes."""
+        q = torch.full((300, 512), 127, dtype=torch.int8)
+        got = ops.switch_sum_op(q)
+        assert int(got.min()) == int(got.max()) == 300 * 127 == 38100
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jops.switch_sum_op(jnp.asarray(q.numpy()))))
+
+    def test_plain_matches_oracle_twins(self):
+        q = _int8_rows(5, 1792, seed=5)
+        for orig_len in (None, 1700):
+            got = switch_sum_plain(torch.from_numpy(q), orig_len=orig_len)
+            twin = ref.switch_sum_ref(torch.from_numpy(q), orig_len=orig_len)
+            oracle = jref.switch_sum_ref(jnp.asarray(q), orig_len=orig_len)
+            assert torch.equal(got, twin)
+            np.testing.assert_array_equal(twin.numpy(), np.asarray(oracle))
+
+    def test_bad_shapes_raise(self):
+        with pytest.raises(ValueError, match="int8"):
+            switch_sum_plain(torch.zeros((2, 256), dtype=torch.int32))
+        with pytest.raises(ValueError, match="window"):
+            switch_sum_plain(torch.zeros((2, 300), dtype=torch.int8))
+        with pytest.raises(ValueError, match="orig_len"):
+            switch_sum_plain(torch.zeros((2, 256), dtype=torch.int8),
+                             orig_len=257)
+        with pytest.raises(ValueError):
+            switch_sum_plain(torch.zeros(256, dtype=torch.int8))
+
+
+# --------------------------------------------------------------------------- #
+# scatter_aggregate
+# --------------------------------------------------------------------------- #
+def _chunks(n, k, d, seed=0, drop_frac=0.0, unit_weights=False):
+    """Distinct indices within each sender, as top-k gives them."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(d, size=k, replace=False)
+                    for _ in range(n)]).astype(np.int32)
+    if drop_frac:
+        idx[rng.random((n, k)) < drop_frac] = -1
+    q = rng.integers(-127, 128, size=(n, k)).astype(np.int8)
+    s = rng.uniform(1e-3, 2.0, size=(n,)).astype(np.float32)
+    w = (np.ones(n, np.float32) if unit_weights
+         else rng.uniform(0.5, 1.5, size=(n,)).astype(np.float32))
+    return idx, q, s, w
+
+
+def _scatter_both(idx, q, s, w, d_out, **pallas_kw):
+    got = ops.scatter_aggregate_op(*map(torch.from_numpy, (idx, q, s, w)),
+                                   d_out=d_out)
+    want = j_scatter(*map(jnp.asarray, (idx, q, s, w)), d_out=d_out,
+                     interpret=True, **pallas_kw)
+    return got, want
+
+
+class TestScatterAggregate:
+    @pytest.mark.parametrize("n,k,d,block_d,k_tile", [
+        (1, 4, 64, 64, 4),           # one sender, one tile
+        (8, 64, 4096, 2048, 64),     # even tiles
+        (5, 37, 5000, 2048, 16),     # ragged D tile and K tile
+        (3, 300, 4097, 512, 256),    # K over several tiles, odd D
+    ])
+    def test_plain_matches_pallas_bitwise(self, n, k, d, block_d, k_tile):
+        """Weights != 1: the plain version groups q * (scale * w) as the
+        kernel does."""
+        idx, q, s, w = _chunks(n, k, d, seed=n + k, drop_frac=0.3)
+        (a, ss), (ja, jss) = _scatter_both(idx, q, s, w, d, block_d=block_d,
+                                           k_tile=k_tile)
+        assert a.shape == (d,) and a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+        np.testing.assert_allclose(float(ss), float(jss), rtol=1e-5)
+
+    def test_duplicates_accumulate(self):
+        idx = np.asarray([[5, 5, 9], [5, 9, 9]], np.int32)
+        q = np.asarray([[10, 20, 30], [40, 50, 60]], np.int8)
+        s = np.ones(2, np.float32)
+        w = np.asarray([1.0, 2.0], np.float32)
+        (a, ss), (ja, _) = _scatter_both(idx, q, s, w, 16, block_d=8)
+        expect = np.zeros(16, np.float32)
+        expect[5] = 10 + 20 + 2 * 40
+        expect[9] = 30 + 2 * (50 + 60)
+        np.testing.assert_array_equal(a.numpy(), expect)
+        np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-6)
+        assert float(ss) == float((expect ** 2).sum())
+
+    def test_random_duplicates_within_tolerance(self):
+        """Many duplicates per column: the two sides add the same m terms
+        in different orders, so each is within m * 2^-24 * sum|v| of the
+        exact sum and they are within twice that of each other."""
+        rng = np.random.default_rng(3)
+        idx = rng.integers(0, 50, size=(4, 300)).astype(np.int32)
+        q = rng.integers(-127, 128, size=(4, 300)).astype(np.int8)
+        s = rng.uniform(1e-3, 2.0, size=4).astype(np.float32)
+        w = rng.uniform(0.5, 1.5, size=4).astype(np.float32)
+        (a, ss), (ja, jss) = _scatter_both(idx, q, s, w, 64, block_d=64)
+        v = np.abs(q.astype(np.float64) * (s * w)[:, None])
+        absum = np.bincount(idx.ravel(), v.ravel(), minlength=64)
+        m = np.bincount(idx.ravel(), minlength=64).max()
+        assert np.all(np.abs(a.numpy() - np.asarray(ja))
+                      <= 2 * m * 2.0 ** -24 * absum)
+        np.testing.assert_allclose(float(ss), float(jss), rtol=1e-5)
+
+    def test_all_slots_dropped_gives_zero(self):
+        idx = np.full((3, 8), -1, np.int32)
+        q = np.ones((3, 8), np.int8)
+        s = w = np.ones(3, np.float32)
+        (a, ss), (ja, _) = _scatter_both(idx, q, s, w, 100)
+        assert float(a.abs().max()) == 0.0 and float(ss) == 0.0
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+
+    def test_out_of_range_slots_are_dropped(self):
+        idx, q, s, w = _chunks(2, 40, 300, seed=9)
+        idx[0, :5] = [300, 301, 2 ** 31 - 1, -7, -1]
+        (a, ss), (ja, jss) = _scatter_both(idx, q, s, w, 300, block_d=128)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+        np.testing.assert_allclose(float(ss), float(jss), rtol=1e-5)
+
+    def test_plain_matches_oracle_twins(self):
+        """The oracles form (q * scale) * w: at w = 1 that is the kernel's
+        product, bit for bit; at w != 1 it rounds apart (rtol 1e-6)."""
+        for unit in (True, False):
+            idx, q, s, w = _chunks(4, 50, 700, seed=4, drop_frac=0.2,
+                                   unit_weights=unit)
+            args = tuple(map(torch.from_numpy, (idx, q, s, w)))
+            ap, ssp = scatter_aggregate_plain(*args, d_out=700)
+            ar, ssr = ref.scatter_aggregate_ref(*args, d_out=700)
+            aj, _ = jref.scatter_aggregate_ref(*map(jnp.asarray,
+                                                    (idx, q, s, w)),
+                                               d_out=700)
+            np.testing.assert_array_equal(ar.numpy(), np.asarray(aj))
+            if unit:
+                assert torch.equal(ap, ar)
+            else:
+                np.testing.assert_allclose(ap.numpy(), ar.numpy(), rtol=1e-6)
+            np.testing.assert_allclose(float(ssp), float(ssr), rtol=1e-5)
+
+    def test_bad_shapes_raise(self):
+        idx, q, s, w = (torch.from_numpy(a) for a in _chunks(2, 4, 16))
+        with pytest.raises(ValueError):
+            scatter_aggregate_plain(idx, q[:, :3], s, w, d_out=16)
+        with pytest.raises(ValueError):
+            scatter_aggregate_plain(idx, q, s[:1], w, d_out=16)
+        with pytest.raises(ValueError):
+            scatter_aggregate_plain(idx.long(), q, s, w, d_out=16)
+        with pytest.raises(ValueError):
+            scatter_aggregate_plain(idx, q, s, w, d_out=0)
+        with pytest.raises(ValueError):
+            scatter_aggregate_plain(idx[:, :0], q[:, :0], s, w, d_out=16)
+
+
+class TestSliceFourRouting:
+    def test_cpu_goes_to_plain_and_counts_nothing(self):
+        before = (ops.switch_sum_op.launches,
+                  ops.scatter_aggregate_op.launches)
+        ops.switch_sum_op(torch.ones((2, 256), dtype=torch.int8))
+        ops.scatter_aggregate_op(torch.zeros((1, 4), dtype=torch.int32),
+                                 torch.ones((1, 4), dtype=torch.int8),
+                                 torch.ones(1), torch.ones(1), d_out=8)
+        assert (ops.switch_sum_op.launches,
+                ops.scatter_aggregate_op.launches) == before
+
+    def test_meta_raises(self):
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.switch_sum_op(torch.zeros((1, 256), dtype=torch.int8,
+                                          device="meta"))
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.scatter_aggregate_op(
+                torch.zeros((1, 4), dtype=torch.int32, device="meta"),
+                torch.zeros((1, 4), dtype=torch.int8, device="meta"),
+                torch.ones(1, device="meta"), torch.ones(1, device="meta"),
+                d_out=8)

@@ -234,6 +234,32 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
                       bucket_bytes=1024)
     _, _, m = step.fn(params, momentum_sgd_init(params), data_fn(0, 0))
     assert torch.isfinite(m["loss"])
+
+    # the switch and bounded-loss tiers, the sender's error feedback and
+    # the phase-aware policy
+    import functools
+    import repro_torch.dist.policy, repro_torch.kernels.switch_sum  # noqa
+    import repro_torch.kernels.scatter_aggregate  # noqa: F401
+    from repro_torch.core.network import LossSchedule
+    from repro_torch.dist import (ErrorFeedback, PhaseLossPolicy,
+                                  loss_drop_mask, mlfabric_grad_reduce)
+    from repro_torch.tree import tree_leaves
+    sched = LossSchedule()
+    sched.set_drop("pod0", 0.0, 0.25, direction="up")
+    mesh = make_host_mesh(device="cpu")
+    for kw in (dict(backend="hierarchical"),
+               dict(backend="switch", keep_inter=0.1,
+                    drop_mask_inter=functools.partial(
+                        loss_drop_mask, sched, "pod0", "pod1", 0.0))):
+        out = mlfabric_grad_reduce(params, mesh=mesh, inter_axis="pod",
+                                   bucket_bytes=1024, **kw)
+        assert all(torch.isfinite(v).all() for v in tree_leaves(out))
+    pol = PhaseLossPolicy()
+    ef = ErrorFeedback(256, device="cpu")
+    g = torch.randn(256, generator=torch.Generator().manual_seed(0))
+    ef.compress(g, keep=pol.topk_keep(), bound=0.5 * float(g.norm()),
+                drop_mask=loss_drop_mask(sched, "pod0", "pod1", 0.0, 26))
+    assert float(ef.residual.norm()) <= 0.5 * float(g.norm())
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
