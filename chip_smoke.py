@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -53,10 +53,27 @@ toolkit.  Every line it prints is one JSON object:
    drops) and switch + keep_inter tiers, 1 warm-up and 3 timed reduces
    each: ms per reduce, launches, peak memory and exact checks; then 3
    rounds of one sender's ``ErrorFeedback`` over the embedding bucket.
-10. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
+10. ``kernel`` lines for ``flash_attention`` (in step 3): Qwen2-0.5B's 14/2
+   heads of 64 in bf16, causal, timed at (B 2, S 4096) and at the prefill
+   shape (B 1, S 32768) beside its plain version, SDPA and its bound
+   (f32 CUDA-core flops; the bf16 tensor-core bound beside it); checked,
+   untimed, at D 32 f32, 32/32 heads, not causal, a ragged S of 4000 and
+   on [B, S, H, D] views.  Within atol 2e-5 / rtol 1e-5 in f32 and one
+   bf16 ulp in bf16.
+11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
+   f32 under the "pallas" impl, card against CPU: prefill logits and
+   cache, 24 decode steps (teacher-forced, then greedy) with the
+   model-dtype and the int8 cache; greedy tokens identical.
+12. ``serve``: the full-width Qwen2-0.5B in bf16: a 32k prefill through
+   ``build_step(prefill_32k)`` at batch 1 (24 flash launches each) against
+   the "blockwise" impl; a ``decode_32k`` step at batch 128 against a
+   51.5 GB cache at pos 32767 (written in place); ``launch.serve.serve``
+   on 8 requests of 128 tokens, batch 4, 64 new tokens; prefill against
+   teacher-forced decode on the first batch, in bf16 and in f32.
+13. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
    gloo processes sharing the card, reduced model, against the auto step;
    then the three tiers on that world.
-11. The ``{"kernels": [...]}`` summary (five kernels), then
+14. The ``{"kernels": [...]}`` summary (six kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -128,7 +145,7 @@ def bound_by(nbytes: float, flops: float = 0.0) -> str:
 
 
 KERNELS = ("quantize", "dequant_aggregate", "grad_aggregate", "switch_sum",
-           "scatter_aggregate")
+           "scatter_aggregate", "flash_attention")
 
 
 def ops_launches():
@@ -288,6 +305,7 @@ def phase_kernels():
     kernel_reduce_unaligned_tree(dev)
     kernel_switch_sum(gen, dev, rows)
     kernel_scatter_aggregate(gen, dev, rows)
+    kernel_flash_attention(dev, rows)
     return rows
 
 
@@ -1432,6 +1450,489 @@ def phase_mlfabric_ranks():
               f"rank {r['rank']}: scatter_aggregate at N=2 did not run")
 
 
+# --------------------------------------------------------------------------- #
+# serving (slice 5): the flash-attention kernel, prefill, decode, serve()
+# --------------------------------------------------------------------------- #
+BF16_TC_FLOPS = 989e12           # H100 SXM bf16 dense, tensor cores
+ATTN_HEADS, ATTN_KV_HEADS, ATTN_D = 14, 2, 64    # Qwen2-0.5B
+PREFILL_BATCH = 1                # prefill_32k's global batch 32, cut to 1
+PREFILL_TIMED = 2
+DECODE_TIMED = 3
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 128, 64
+SERVE_PARITY_PREFILL = 32          # a multiple of 16: the flash kernel's
+SERVE_PARITY_PROMPT, SERVE_PARITY_NEW = 16, 9      # 24 decode steps
+# two bf16 paths through 24 layers: twice the largest sound reading of
+# scripts/serve_tolerance.py over 6 seeds (3.9% / 5.4%), below what a
+# causal mask one key off (88% / 132%) and float8 q, k, v (16% / 24%) read
+BF16_PREFILL_TOL = 8e-2          # the 32k prefill, "pallas" vs "blockwise"
+BF16_CACHE_TOL = 2e-1            # the prefill vs the decode-built cache
+F32_REL_TOL = 1e-3               # two f32 paths through 24 layers
+
+
+def attn_work(b: int, h: int, kvh: int, s: int, d: int, causal: bool):
+    """(bytes, flops) of one bf16 attention call: q, k, v read once and the
+    output written once; ``flops`` is what each of the two products (q.k^T
+    and p.v) does over the unmasked (q, k) pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return (2 * b * s * d * (2 * h + 2 * kvh), 2.0 * pairs * d * h * b)
+
+
+def attn_bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by) of one bf16 attention call.  q.k^T of bf16
+    inputs is exact on the bf16 tensor cores (bf16 products are exact in
+    f32, summed in f32), so it counts at their rate; p.v takes p in f32,
+    as the reference keeps it, so it counts at the f32 CUDA-core rate.
+    The two run on different units and may overlap, so the operations
+    take the larger of their two times (the exps are not counted)."""
+    qk_s, pv_s = flops / BF16_TC_FLOPS, flops / F32_FLOPS
+    ops_s = max(qk_s, pv_s)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def attn_check(out, ref, what: str) -> dict:
+    """max_abs_err and rel_err of the kernel against its plain version,
+    held to atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in bf16 (f32
+    sums in other orders, rounded to bf16 apart)."""
+    import torch
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    rel = err / max(float(ref.float().abs().max()), 1e-30)
+    if out.dtype == torch.float32:
+        ok = bool((diff <= 2e-5 + 1e-5 * ref.abs()).all())
+    else:
+        ok = bool((diff <= 1e-6 + 2 ** -7 * ref.float().abs()).all())
+    check(ok and out.shape == ref.shape and out.dtype == ref.dtype,
+          f"flash_attention {what}: max abs err {err} (rel {rel})")
+    return {"max_abs_err": err, "rel_err": rel}
+
+
+def sdpa_ms(q, k, v) -> float:
+    """ms of PyTorch's fused causal attention on the same inputs, the
+    yardstick of ``library_ms``: ``scaled_dot_product_attention`` with
+    ``enable_gqa=True``, held to its fused backends (the math backend would
+    build the [S, S] scores: 60 GB at 32k)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2)
+
+
+def kernel_flash_attention(dev, rows) -> None:
+    """Timed at (B 2, S 4096) and at the prefill shape (B 1, S 32768),
+    Qwen2-0.5B's 14/2 heads of 64, bf16, causal; held against the plain
+    version there and, untimed, at D 32 f32, 32/32 heads (stablelm), not
+    causal, a ragged S of 4000 and [B, S, H, D] views.  ``library_ms`` is
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ops import flash_attention_op
+
+    def inputs(b, h, kvh, s, d, dtype, seed, strided=False):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out = []
+        for n in (h, kvh, kvh):
+            shape = (b, s, n, d) if strided else (b, n, s, d)
+            t = torch.randn(shape, generator=g, device=dev).to(dtype)
+            out.append(t.transpose(1, 2) if strided else t)
+        return out
+
+    with torch.no_grad():
+        for b, s in ((2, 4096), (PREFILL_BATCH, 32768)):
+            # transposed [B, S, H, D] views, as the prefill hands them over
+            q, k, v = inputs(b, ATTN_HEADS, ATTN_KV_HEADS, s, ATTN_D,
+                             torch.bfloat16, seed=s, strided=True)
+            out = flash_attention_op(q, k, v)
+            ref = flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            errs = attn_check(out, ref, f"B {b} S {s}")
+            del out, ref
+            ms = cuda_ms(lambda: flash_attention_op(q, k, v),
+                         iters=3 if s > 4096 else 10, warmup=1)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v),
+                               iters=1, warmup=1)
+            library_ms = sdpa_ms(q, k, v)
+            nbytes, flops = attn_work(b, ATTN_HEADS, ATTN_KV_HEADS, s,
+                                      ATTN_D, True)
+            bound, by = attn_bound(nbytes, flops)
+            row = dict(name="flash_attention", route="cuda",
+                       source="src/repro_torch/csrc/flash_attention.cu",
+                       replaces="src/repro/kernels/flash_attention.py:82",
+                       **errs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by, library_ms=library_ms)
+            emit({"phase": "kernel", "kernel": "flash_attention", "B": b,
+                  "H": ATTN_HEADS, "KVH": ATTN_KV_HEADS, "S": s, "D": ATTN_D,
+                  "dtype": "bfloat16", "causal": True, "layout": "BSHD views",
+                  **row, "flops": 2 * flops, "bytes": nbytes,
+                  "bound_share": bound / ms,
+                  "bound_all_f32_ms": 2 * flops / F32_FLOPS * 1e3,
+                  "bound_tensor_core_bf16_ms":
+                      2 * flops / BF16_TC_FLOPS * 1e3,
+                  "tflops": 2 * flops / ms / 1e9})
+            rows["flash_attention"] = row
+            del q, k, v
+        for what, (b, h, kvh, s, d, dtype, causal, strided) in {
+                "reduced D 32 f32": (2, 4, 2, 1024, 32, torch.float32, True,
+                                     False),
+                "stablelm 32/32 heads": (1, 32, 32, 2048, 64, torch.bfloat16,
+                                         True, False),
+                "not causal": (1, 14, 2, 2048, 64, torch.bfloat16, False,
+                               False),
+                "ragged S 4000": (1, 14, 2, 4000, 64, torch.bfloat16, True,
+                                  False),
+                "[B,S,H,D] views": (2, 14, 2, 2048, 64, torch.bfloat16, True,
+                                    True),
+                "D 128 f32": (1, 8, 2, 1000, 128, torch.float32, True, True),
+        }.items():
+            q, k, v = inputs(b, h, kvh, s, d, dtype, seed=s + h,
+                             strided=strided)
+            out = flash_attention_op(q, k, v, causal=causal)
+            ref = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            emit({"phase": "kernel", "kernel": "flash_attention",
+                  "case": what, "B": b, "H": h, "KVH": kvh, "S": s, "D": d,
+                  "dtype": str(dtype).removeprefix("torch."),
+                  "causal": causal, **attn_check(out, ref, what)})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_parity_run(arch: str, device: str, init_np, kv_int8: bool):
+    """Prefill of ``SERVE_PARITY_PREFILL``-token prompts, then 24 decode
+    steps from their first token: teacher-forced to
+    ``SERVE_PARITY_PROMPT`` tokens, then greedy; f32, under "pallas"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_torch
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, dtype=torch.float32, device=device)
+    params = to_torch(init_np, dtype=torch.float32, device=device)
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, SERVE_PARITY_PREFILL)).astype(np.int32))
+    logits_pre, cache_pre = model.prefill(params,
+                                          {"tokens": prompts.to(device)})
+    max_len = SERVE_PARITY_PROMPT + SERVE_PARITY_NEW
+    cache = model.init_cache(2, max_len, kv_int8=kv_int8)
+    tok, logits, toks = prompts[:, :1].to(device), [], []
+    for pos in range(max_len - 1):
+        lg, cache = model.decode_step(params, cache, tok, pos)
+        logits.append(lg.cpu())
+        if pos + 1 < SERVE_PARITY_PROMPT:
+            tok = prompts[:, pos + 1:pos + 2].to(device)
+        else:
+            tok = torch.argmax(lg, -1, keepdim=True).to(torch.int32)
+            toks.append(tok.cpu())
+    return (logits_pre.cpu(), {k: t.cpu() for k, t in
+                               cache_pre["layers"].items()},
+            torch.stack(logits), torch.cat(toks, 1),
+            {k: t.cpu() for k, t in cache["layers"].items()})
+
+
+def phase_reduced_serve_parity():
+    """Reduced qwen2-0.5b and stablelm-1.6b in f32 under "pallas" on the
+    card (flash kernel) and on the CPU (plain versions) from the same
+    params: prefill logits and cache, and every decode step's logits, for
+    the model-dtype cache and ``kv_int8``, within atol 1e-4 / rtol 1e-4
+    (f32 sums in other orders on each side); greedy tokens identical; int8
+    payloads within one step where a rounding tie may fall either way, on
+    at most 0.1% of them, and scales within rtol 1e-5."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, build_model
+
+    attention.set_attention_impl("pallas")
+    try:
+        for arch in ("qwen2-0.5b", "stablelm-1.6b"):
+            cfg = get_config(arch).reduced()
+            init = to_numpy(build_model(cfg, dtype=torch.float32,
+                                        device="cpu")
+                            .init(torch.Generator().manual_seed(0)))
+            for kv_int8 in (False, True):
+                before = ops.flash_attention_op.launches
+                card = _serve_parity_run(arch, "cuda", init, kv_int8)
+                check(ops.flash_attention_op.launches
+                      == before + cfg.n_layers,
+                      f"{arch}: the card's prefill did not launch the "
+                      "flash kernel once per layer")
+                cpu = _serve_parity_run(arch, "cpu", init, kv_int8)
+                errs = {}
+                for name, a, b in (
+                        ("prefill_logits", card[0], cpu[0]),
+                        *((f"prefill_{k}", card[1][k], cpu[1][k])
+                          for k in card[1]),
+                        ("decode_logits", card[2], cpu[2])):
+                    errs[name] = float((a - b).abs().max())
+                    check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                          f"{arch} kv_int8={kv_int8} {name}: card and CPU "
+                          f"differ by {errs[name]}")
+                flips = 0
+                for k in card[4]:
+                    a, b = card[4][k], cpu[4][k]
+                    if k.endswith("_q"):
+                        d = (a.int() - b.int()).abs()
+                        flips += int((d > 0).sum())
+                        check(int(d.max()) <= 1
+                              and float((d > 0).float().mean()) <= 1e-3,
+                              f"{arch} int8 {k}: {int((d > 0).sum())} "
+                              "payloads differ")
+                    else:
+                        check(torch.allclose(a, b, rtol=1e-5 if kv_int8
+                                             else 1e-4,
+                                             atol=0 if kv_int8 else 1e-4),
+                              f"{arch} cache {k}: card and CPU differ")
+                same = bool(torch.equal(card[3], cpu[3]))
+                emit({"phase": "reduced_serve_parity", "arch": arch,
+                      "kv_int8": kv_int8, "impl": "pallas",
+                      "prefill": SERVE_PARITY_PREFILL,
+                      "prompt": SERVE_PARITY_PROMPT,
+                      "greedy_steps": SERVE_PARITY_NEW,
+                      "max_abs_err": errs, "int8_payload_flips": flips,
+                      "greedy_tokens_equal": same,
+                      "tokens_card": card[3].tolist()})
+                check(same, f"{arch} kv_int8={kv_int8}: greedy tokens differ")
+    finally:
+        attention.set_attention_impl("blockwise")
+
+
+def _bf16_rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def prefill_rel(logits, cache, logits_ref, cache_ref) -> dict:
+    """Largest difference of two prefills' logits and caches, each over
+    the largest value of the second."""
+    return {"logits": _bf16_rel(logits, logits_ref),
+            **{k: _bf16_rel(cache["layers"][k], cache_ref["layers"][k])
+               for k in ("k", "v")}}
+
+
+def decode_built(model, params, prompts, max_len: int):
+    """Teacher-forced decode of ``prompts`` from position 0 under
+    "blockwise": (the logits at the last prompt position, the cache)."""
+    from repro_torch.models import attention
+    attention.set_attention_impl("blockwise")
+    cache = model.init_cache(prompts.shape[0], max_len)
+    for pos in range(prompts.shape[1]):
+        logits, cache = model.decode_step(params, cache,
+                                          prompts[:, pos:pos + 1], pos)
+    return logits, cache
+
+
+def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec) -> dict:
+    """The "pallas" prefill of ``prompts`` against the logits and cache
+    that ``decode_built`` gave for them: per layer, the largest difference
+    of k and v over the prefill's largest value; the logits' difference;
+    the prefill's top-1 margins and the rows whose top-1 agree."""
+    from repro_torch.models import attention
+    attention.set_attention_impl("pallas")
+    logits_pre, cache_pre = model.prefill(params, {"tokens": prompts})
+    attention.set_attention_impl("blockwise")
+    n = prompts.shape[1]
+    rel = {k: [_bf16_rel(cache_dec["layers"][k][i, :, :n],
+                         cache_pre["layers"][k][i])
+               for i in range(cache_pre["layers"][k].shape[0])]
+           for k in ("k", "v")}
+    top2 = logits_pre.float().topk(2, dim=-1).values
+    return {"cache_rel_err_layer0": {k: v[0] for k, v in rel.items()},
+            "cache_rel_err_max": {k: max(v) for k, v in rel.items()},
+            "logits_rel_err": _bf16_rel(logits_dec, logits_pre),
+            "logits_max_abs_err": float((logits_dec.float()
+                                         - logits_pre.float()).abs().max()),
+            "top1_minus_top2": (top2[:, 0] - top2[:, 1]).tolist(),
+            "top1_equal_rows": int((logits_pre.argmax(-1)
+                                    == logits_dec.argmax(-1)).sum())}
+
+
+def phase_serve():
+    """Serving the full-width Qwen2-0.5B in bf16 on one card.
+
+    * prefill: ``build_step(cfg, prefill_32k)`` at seq 32768 with batch 1
+      (not 32: with the CUDA-core kernel a batch of 32 takes minutes),
+      under "pallas", 1 warm-up and ``PREFILL_TIMED`` timed, 24 flash
+      launches each; then the same prefill under the default "blockwise"
+      impl, logits and cache within ``BF16_PREFILL_TOL`` of the largest
+      value.
+    * decode: ``build_step(cfg, decode_32k)`` at batch 128 against a cache
+      of 32768 positions filled from a seeded generator, at pos 32767,
+      1 warm-up and ``DECODE_TIMED`` timed; bound: the cache and the params
+      read once at the memory rate.
+    * serve: ``launch.serve.serve`` on ``SERVE_REQUESTS`` requests of
+      ``SERVE_PROMPT`` tokens, batch ``SERVE_BATCH``, ``SERVE_NEW`` new
+      tokens each.
+    * consistency: prefill of the first batch's prompts against the cache
+      that teacher-forced decode builds for them, in bf16 (k, v within
+      ``BF16_CACHE_TOL`` of the largest value) and in f32 (k, v and logits
+      within ``F32_REL_TOL``, and the same top-1 at the last prompt
+      position on at least 3 of 4 rows).
+
+    Returns the launches of prefill, decode and serve (zeroed before)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import attention, build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(FULL_ARCH)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    mesh = make_host_mesh(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    # -- prefill ------------------------------------------------------------
+    shape = dataclasses.replace(SHAPES["prefill_32k"],
+                                global_batch=PREFILL_BATCH)
+    step = build_step(cfg, shape, mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    attention.set_attention_impl("pallas")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    secs = []
+    for _ in range(1 + PREFILL_TIMED):
+        t0 = time.perf_counter()
+        logits, cache = step.fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    prefill_launches = ops_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    attention.set_attention_impl("blockwise")
+    t0 = time.perf_counter()
+    logits_bw, cache_bw = step.fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    blockwise_s = time.perf_counter() - t0
+    s_prefill = sum(secs[1:]) / PREFILL_TIMED
+    rel = prefill_rel(logits, cache, logits_bw, cache_bw)
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = cfg.n_layers * (1 + PREFILL_TIMED)
+    emit({"phase": "serve", "part": "prefill", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": "bfloat16", "impl": "pallas",
+          "seq_len": shape.seq_len, "batch": PREFILL_BATCH,
+          "warmup_s": secs[0], "prefill_s": secs[1:],
+          "s_per_prefill": s_prefill,
+          "prompt_tokens_per_s": PREFILL_BATCH * shape.seq_len / s_prefill,
+          "max_memory_allocated": peak, "launches": prefill_launches,
+          "blockwise_s": blockwise_s, "rel_err_vs_blockwise": rel,
+          "top1_equal_vs_blockwise": bool(torch.equal(
+              logits.argmax(-1), logits_bw.argmax(-1)))})
+    check(prefill_launches == want,
+          f"prefill launched {prefill_launches}, want {want}")
+    check(bool(torch.isfinite(logits).all()) and logits.shape
+          == (PREFILL_BATCH, cfg.padded_vocab), "prefill logits")
+    check(tuple(cache["layers"]["k"].shape) == (
+        cfg.n_layers, PREFILL_BATCH, shape.seq_len, cfg.n_kv_heads,
+        cfg.head_dim), "prefill cache shape")
+    check(all(r <= BF16_PREFILL_TOL for r in rel.values()),
+          f"pallas and blockwise prefill differ: {rel}")
+    del logits, cache, logits_bw, cache_bw, step, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- decode at decode_32k ----------------------------------------------
+    shape = SHAPES["decode_32k"]
+    step = build_step(cfg, shape, mesh)
+    cache = model.init_cache(shape.global_batch, shape.seq_len)
+    for t in cache["layers"].values():
+        for layer in t:
+            layer.normal_(generator=gen)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["layers"].values())
+    tok = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    pos = shape.seq_len - 1
+    ptr = cache["layers"]["k"].data_ptr()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(1 + DECODE_TIMED):
+        t0 = time.perf_counter()
+        logits, cache = step.fn(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_step = sum(secs[1:]) / DECODE_TIMED * 1e3
+    decode_bound = (cache_bytes + param_bytes) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "serve", "part": "decode", "seq_len": shape.seq_len,
+          "batch": shape.global_batch, "pos": pos, "cache_bytes": cache_bytes,
+          "param_bytes": param_bytes, "warmup_ms": secs[0] * 1e3,
+          "step_ms": [s * 1e3 for s in secs[1:]], "ms_per_step": ms_step,
+          "bound_ms": decode_bound, "bound_share": decode_bound / ms_step,
+          "tokens_per_s": shape.global_batch / ms_step * 1e3,
+          "max_memory_allocated": peak})
+    check(cache["layers"]["k"].data_ptr() == ptr,
+          "decode did not write its cache in place")
+    check(bool(torch.isfinite(logits).all()) and logits.shape
+          == (shape.global_batch, cfg.padded_vocab), "decode logits")
+    del cache, logits, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the serve loop ------------------------------------------------------
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT)
+                    .astype(np.int32)) for i in range(SERVE_REQUESTS)]
+    max_len = SERVE_PROMPT + SERVE_NEW
+    done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len)
+    serve_launches = ops_launches()
+    n_new = sum(len(r.output) for r in done)
+    emit({"phase": "serve", "part": "serve_loop", "requests": len(done),
+          "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+          "max_new": SERVE_NEW, "decode_steps": steps, "seconds": dt,
+          "steps_per_s": steps / dt, "generated_tokens": n_new,
+          "generated_tokens_per_s": n_new / dt,
+          "first_outputs": [r.output[:8] for r in done[:2]]})
+    check(steps == SERVE_REQUESTS // SERVE_BATCH * (max_len - 1)
+          and n_new == SERVE_REQUESTS * SERVE_NEW, "serve loop counts")
+    check(serve_launches == prefill_launches,
+          f"decode launched kernels: {serve_launches}")
+
+    # -- consistency of prefill and decode (a check, not the serve path) ----
+    prompts = torch.from_numpy(np.stack([r.prompt for r in
+                                         done[:SERVE_BATCH]])).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        m = model if dtype == torch.bfloat16 else build_model(
+            cfg, dtype=dtype, device=dev)
+        p = tree_map(lambda t: t.to(dtype), params)
+        r = prefill_vs_decode(m, p, prompts,
+                              *decode_built(m, p, prompts, max_len))
+        name = str(dtype).removeprefix("torch.")
+        emit({"phase": "serve", "part": "prefill_vs_decode", "dtype": name,
+              "rows": SERVE_BATCH, "positions": SERVE_PROMPT, **r})
+        limit = BF16_CACHE_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+        check(all(v <= limit for v in r["cache_rel_err_max"].values()),
+              f"{name} prefill and decode caches differ: {r}")
+        # the random-weight model's logits are flat: in bf16 the top-2 gap
+        # lies below the noise of two bf16 paths, so top-1 is held in f32
+        if dtype == torch.float32:
+            check(r["logits_rel_err"] <= F32_REL_TOL,
+                  "f32 prefill and decode logits differ")
+            check(r["top1_equal_rows"] >= SERVE_BATCH - 1,
+                  f"prefill and decode top-1 agree on "
+                  f"{r['top1_equal_rows']} of {SERVE_BATCH} rows")
+        del m, p
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve_launches
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1452,13 +1953,15 @@ def main() -> int:
     phase_reduced_tier_parity()
     step_launches = phase_mlfabric_step()
     tier_launches_ = phase_tiers()
+    phase_reduced_serve_parity()
+    serve_launches = phase_serve()
     phase_mlfabric_ranks()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {"main_path": launches, "mlfabric_step": step_launches,
-               "tiers": tier_launches_}
+               "tiers": tier_launches_, "serve": serve_launches}
     total = {k: sum(p.get(k, 0) for p in by_path.values()) for k in KERNELS}
     for k, n in total.items():
         check(n > 0, f"{k} was not launched on the main paths")

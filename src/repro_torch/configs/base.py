@@ -294,4 +294,4 @@ def list_configs() -> Sequence[str]:
 
 def _load_all() -> None:
     # import side-effect registers each architecture the port carries so far
-    from . import qwen2_0_5b  # noqa
+    from . import minicpm_2b, qwen2_0_5b, stablelm_1_6b  # noqa

@@ -4,8 +4,9 @@
 ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 
-from .ops import (dequant_aggregate_op, grad_aggregate_op, quantize_op,
-                  scatter_aggregate_op, switch_sum_op)
+from .ops import (dequant_aggregate_op, flash_attention_op,
+                  grad_aggregate_op, quantize_op, scatter_aggregate_op,
+                  switch_sum_op)
 
-__all__ = ["dequant_aggregate_op", "grad_aggregate_op", "quantize_op",
-           "scatter_aggregate_op", "switch_sum_op"]
+__all__ = ["dequant_aggregate_op", "flash_attention_op", "grad_aggregate_op",
+           "quantize_op", "scatter_aggregate_op", "switch_sum_op"]

@@ -10,7 +10,8 @@ runs at import time: the CPU tests import every module on hosts without
 
 No flag may relax IEEE arithmetic (``--use_fast_math``, ``-prec-div=false``,
 ``-ftz=true``): the quantizer's payload must match the plain version bit for
-bit, and the aggregators' sums must match their plain loops bit for bit.
+bit, the aggregators' sums must match their plain loops bit for bit, and
+the attention kernel's ``expf`` and division stay the accurate ones.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ SOURCES = {"quantize": "quantize.cu",
            "dequant_aggregate": "dequant_aggregate.cu",
            "grad_aggregate": "grad_aggregate.cu",
            "switch_sum": "switch_sum.cu",
-           "scatter_aggregate": "scatter_aggregate.cu"}
+           "scatter_aggregate": "scatter_aggregate.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from .dequant_aggregate import dequant_aggregate, dequant_aggregate_plain
+from .flash_attention import flash_attention, flash_attention_plain
 from .grad_aggregate import grad_aggregate, grad_aggregate_plain
 from .quantize import quantize, quantize_plain
 from .scatter_aggregate import scatter_aggregate, scatter_aggregate_plain
@@ -96,8 +97,31 @@ def scatter_aggregate_op(idx: torch.Tensor, q: torch.Tensor,
     return scatter_aggregate_plain(idx, q, scales, weights, d_out=d_out)
 
 
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True, scale: Optional[float] = None,
+                       block_q: int = 128, block_k: int = 128
+                       ) -> torch.Tensor:
+    """Forward attention, q [B, H, Sq, D] against k, v [B, KVH, Skv, D] ->
+    [B, H, Sq, D] in q's dtype (the reference's ``flash_attention``
+    arguments; ``block_q``/``block_k`` do not set the CUDA kernel's tiles).
+    Forward only: it raises where autograd would record it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_op has no backward: the reference's Pallas "
+            "flash kernel is forward-only and the port carries no backward "
+            "kernel; call it under torch.no_grad() or on tensors that do not "
+            "require grad (training takes the blockwise attention)")
+    kw = dict(causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+    if _route(q, "flash_attention_op"):
+        out = flash_attention(q, k, v, **kw)
+        flash_attention_op.launches += 1
+        return out
+    return flash_attention_plain(q, k, v, **kw)
+
+
 quantize_op.launches = 0
 dequant_aggregate_op.launches = 0
 grad_aggregate_op.launches = 0
 switch_sum_op.launches = 0
 scatter_aggregate_op.launches = 0
+flash_attention_op.launches = 0

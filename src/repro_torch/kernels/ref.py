@@ -1,7 +1,10 @@
 """PyTorch twins of the reference's eager oracles (``repro/kernels/ref.py``)
 for the kernels this port carries so far.
 
-They keep the oracles' own arithmetic: ``quantize_ref`` divides by 127
+They keep the oracles' own arithmetic: ``flash_attention_ref`` is the
+dense softmax with the oracle's causal mask ``tril(k=skv-sq)`` (the
+kernel's mask has no offset; the two differ only where ``Sq != Skv``,
+which the model never sends to the kernel), ``quantize_ref`` divides by 127
 (the jitted main path multiplies by its f32 reciprocal, see ``quantize.py``),
 ``dequant_aggregate_ref`` and ``grad_aggregate_ref`` sum the rows with one
 ``einsum``, and ``scatter_aggregate_ref`` forms ``(q * scale) * w`` (the
@@ -11,9 +14,31 @@ oracles, and the kernels' plain versions against them.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D] -> [B, H, Sq, D] in q's
+    dtype.  One dense [Sq, Skv] softmax in f32: an oracle for small shapes."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kvh, g, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - sq)
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return o.reshape(b, h, sq, d).to(q.dtype)
 
 
 def dequant_aggregate_ref(q: torch.Tensor, scales: torch.Tensor,

@@ -1,12 +1,14 @@
-"""Step builders: the training steps of ``repro/launch/steps.py`` over a
-:class:`~repro_torch.launch.mesh.Mesh`.
+"""Step builders: the training, prefill and decode steps of
+``repro/launch/steps.py`` over a :class:`~repro_torch.launch.mesh.Mesh`.
 
 Every rank of the mesh calls the step with the same params, optimizer
 state and *global* batch; each takes its own contiguous slice of the batch,
 in rank order (row-major over ``("pod", "data")``, as the reference's
 ``P(("pod", "data"))`` batch sharding lays it out), and every rank ends
 with the same new params.  Params are replicated: there is no ``model``
-axis yet (ROADMAP slice 5).
+axis yet (ROADMAP slice 5).  The serving steps issue no collective: each
+rank prefills or decodes its own slice of the batch and keeps that slice's
+logits and cache, as the reference's outputs are sharded over the batch.
 """
 
 from __future__ import annotations
@@ -201,13 +203,48 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
     return StepBundle(fn=train_step, mesh=mesh)
 
 
+# --------------------------------------------------------------------------- #
+# prefill and decode (serve_step)
+# --------------------------------------------------------------------------- #
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                       mesh: Mesh) -> StepBundle:
+    """``fn(params, batch) -> (last-position logits, cache)`` of this rank's
+    slice of ``batch["tokens"]`` ([global batch, S])."""
+    axes = data_axes(mesh)
+
+    def prefill_step(params, batch):
+        return tf.prefill(params, _local_batch(batch, mesh, axes), cfg=cfg)
+
+    return StepBundle(fn=prefill_step, mesh=mesh)
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
+                      mesh: Mesh) -> StepBundle:
+    """``fn(params, cache, tokens, pos) -> (logits, cache)``: one token for
+    this rank's slice of ``tokens`` ([global batch, 1]) against this rank's
+    cache (``init_cache`` of the local batch, bf16-typed or int8), written
+    in place at ``pos``.  The reference's ``kv_int8`` flag only shapes the
+    abstract cache it compiles for; here the cache passed in decides."""
+    axes = data_axes(mesh)
+
+    def serve_step(params, cache, tokens, pos):
+        local = _local_batch({"tokens": tokens}, mesh, axes)["tokens"]
+        return tf.decode_step(params, cache, local, pos, cfg=cfg)
+
+    return StepBundle(fn=serve_step, mesh=mesh)
+
+
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                grad_path: str = "auto", **kw) -> StepBundle:
     if shape.kind == "train":
         if grad_path == "mlfabric":
             return build_mlfabric_train_step(cfg, shape, mesh, **kw)
         return build_train_step(cfg, shape, mesh, **kw)
-    if shape.kind in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"{shape.kind} steps come with serving, ROADMAP item 16")
+    if shape.kind in ("prefill", "decode") and grad_path != "auto":
+        raise ValueError(f"grad_path={grad_path!r} is a training option; "
+                         f"{shape.kind} steps take none")
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, **kw)
+    if shape.kind == "decode":
+        return build_decode_step(cfg, shape, mesh, **kw)
     raise ValueError(shape.kind)

@@ -21,13 +21,17 @@ class Model:
     device: torch.device
     init: Callable[[torch.Generator], Params]
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    prefill: Callable[..., Tuple[torch.Tensor, Params]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Params]]
+    init_cache: Callable[..., Params]
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None) -> Model:
     """``device`` defaults to the card and raises where there is none.
     ``init(generator)`` draws on the generator's device and places the
-    params on ``device``."""
+    params on ``device``; ``init_cache(batch, max_len, kv_int8=False)``
+    makes a zero cache of the model's dtype on ``device``."""
     dev = resolve_device(device)
     return Model(
         config=cfg,
@@ -35,5 +39,9 @@ def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
         init=functools.partial(tf.init_params, cfg=cfg, dtype=dtype,
                                device=dev),
         loss_fn=functools.partial(tf.loss_fn, cfg=cfg),
+        prefill=functools.partial(tf.prefill, cfg=cfg),
+        decode_step=functools.partial(tf.decode_step, cfg=cfg),
+        init_cache=functools.partial(tf.init_cache, cfg, dtype=dtype,
+                                     device=dev),
     )
 

@@ -1,5 +1,5 @@
-"""Shared building blocks of the dense decoder: rmsnorm, rope, the gated
-SiLU MLP, tied embeddings and the padded-vocab loss.
+"""Shared building blocks of the dense decoder: rmsnorm and layernorm, rope,
+the gated SiLU MLP, tied or untied embeddings and the padded-vocab loss.
 
 Functional like the reference (``repro/models/layers.py``): ``init_*``
 returns a param dict, the other functions take (params, inputs).  Norms,
@@ -39,11 +39,28 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], *,
 # --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #
-def apply_rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6
-                  ) -> torch.Tensor:
+def init_norm(kind: str, shape: Sequence[int], *, dtype: torch.dtype,
+              device: torch.device) -> Params:
+    """Norm params of ``shape`` (``(d,)``, or ``(L, d)`` stacked)."""
+    p = {"scale": torch.ones(tuple(shape), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        out = ((xf - mu) * torch.rsqrt(var + eps)
+               * p["scale"].to(torch.float32) + p["bias"].to(torch.float32))
+    else:
+        raise ValueError(kind)
     return out.to(x.dtype)
 
 
@@ -78,13 +95,25 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# tied embedding / unembedding with padded vocab
+# embedding / unembedding with padded vocab (tied, or an untied lm_head)
 # --------------------------------------------------------------------------- #
+def init_embeddings(gen: torch.Generator, padded_vocab: int, d: int, *,
+                    tie: bool, dtype: torch.dtype,
+                    device: torch.device) -> Params:
+    kw = dict(dtype=dtype, device=device)
+    p: Params = {"embed": normal(gen, (padded_vocab, d), 0.02, **kw)}
+    if not tie:
+        p["lm_head"] = dense_init(gen, (d, padded_vocab), **kw)
+    return p
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["embed"][tokens.long()]
 
 
 def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
+    if "lm_head" in p:
+        return h @ p["lm_head"]
     return h @ p["embed"].T
 
 

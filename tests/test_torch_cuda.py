@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
 from repro_torch.kernels.quantize import quantize_plain
 from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
@@ -258,3 +259,99 @@ class TestOnCard:
             ops.scatter_aggregate_op(
                 torch.zeros((4, 2), dtype=torch.int32, device="cuda").T, q,
                 one, one, d_out=8)
+
+
+def _attn_inputs(b, h, kvh, s, d, dtype, seed=0, strided=False):
+    """q [B,H,S,D], k, v [B,KVH,S,D] on the card; ``strided``: transposed
+    views of [B, S, H, D] tensors, as the model hands them over."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for n in (h, kvh, kvh):
+        shape = (b, s, n, d) if strided else (b, n, s, d)
+        t = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        out.append(t.transpose(1, 2) if strided else t)
+    return out
+
+
+def _assert_attn_close(out, ref):
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+class TestFlashAttentionOnCard:
+    @pytest.mark.parametrize("b,h,kvh,s,d,dtype,causal,strided", [
+        (2, 14, 2, 4096, 64, torch.bfloat16, True, False),   # qwen2-0.5b
+        (1, 4, 2, 256, 32, torch.float32, True, False),      # reduced, f32
+        (1, 32, 32, 512, 64, torch.bfloat16, True, False),   # stablelm, G=1
+        (1, 14, 2, 1024, 64, torch.bfloat16, False, False),  # not causal
+        (1, 14, 2, 4000, 64, torch.bfloat16, True, False),   # ragged tiles
+        (2, 14, 2, 1024, 64, torch.bfloat16, True, True),    # [B,S,H,D] views
+        (1, 8, 2, 512, 128, torch.bfloat16, True, False),    # D 128
+        (1, 8, 2, 200, 128, torch.float32, False, True),
+        (1, 4, 1, 48, 32, torch.float32, True, False),       # one ragged tile
+    ])
+    def test_flash_attention_kernel(self, b, h, kvh, s, d, dtype, causal,
+                                    strided):
+        _need_card()
+        q, k, v = _attn_inputs(b, h, kvh, s, d, dtype, seed=s + h,
+                               strided=strided)
+        before = ops.flash_attention_op.launches
+        with torch.no_grad():
+            out = ops.flash_attention_op(q, k, v, causal=causal)
+        assert ops.flash_attention_op.launches == before + 1
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == q.dtype
+        if strided:  # laid out as q is: transposing back is free
+            assert out.transpose(1, 2).is_contiguous()
+        _assert_attn_close(out, ref)
+
+    def test_flash_attention_refuses_what_it_does_not_take(self):
+        _need_card()
+        q, k, v = _attn_inputs(1, 4, 2, 64, 32, torch.float32)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention_op(q.requires_grad_(True), k, v)
+        q = q.detach()
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_attention_op(q[..., :16], k[..., :16], v[..., :16])
+        with pytest.raises(ValueError, match="one type"):
+            ops.flash_attention_op(q, k.bfloat16(), v)
+        with pytest.raises(ValueError, match="unit last stride"):
+            ops.flash_attention_op(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v)
+        with pytest.raises(ValueError, match="group"):
+            ops.flash_attention_op(q[:, :3], k, v)
+        with pytest.raises(ValueError, match="one card"):
+            ops.flash_attention_op(q, k.cpu(), v)
+
+    def test_decode_writes_the_cache_in_place(self):
+        """A decode step on the card writes its position into the cache
+        tensors themselves: same storage before and after, the position
+        filled, and the logits those of the CPU."""
+        _need_card()
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+        from repro_torch.tree import tree_map
+        cfg = get_config("qwen2-0.5b").reduced()
+        cpu = build_model(cfg, dtype=torch.float32, device="cpu")
+        card = build_model(cfg, dtype=torch.float32, device="cuda")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        params_card = tree_map(lambda t: t.cuda(), params)
+        toks = torch.randint(0, cfg.vocab_size, (2, 1),
+                             generator=torch.Generator().manual_seed(1))
+        for kv_int8 in (False, True):
+            cache = card.init_cache(2, 8, kv_int8=kv_int8)
+            ptrs = {n: t.data_ptr() for n, t in cache["layers"].items()}
+            logits, new = card.decode_step(params_card, cache, toks.cuda(), 3)
+            assert {n: t.data_ptr() for n, t in new["layers"].items()} == ptrs
+            key = "k_q" if kv_int8 else "k"
+            assert bool(new["layers"][key][:, :, 3].ne(0).any())
+            assert not bool(new["layers"][key][:, :, 4:].ne(0).any())
+            want, _ = cpu.decode_step(params, cpu.init_cache(
+                2, 8, kv_int8=kv_int8), toks, 3)
+            torch.testing.assert_close(logits.cpu(), want, rtol=1e-5,
+                                       atol=2e-5)

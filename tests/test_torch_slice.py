@@ -12,8 +12,8 @@
   ``tests/test_system.py::test_end_to_end_async_lm_training`` and of
   ``tests/test_failover.py::test_midrun_primary_kill_recovers_within_divmax``.
 * The package imports neither JAX nor the JAX package, not even after a
-  world-of-one in-graph MLfabric step, and never falls back to the CPU
-  unasked.
+  world-of-one in-graph MLfabric step, the tiers, a prefill and decode
+  steps and the serve loop, and never falls back to the CPU unasked.
 """
 
 import os
@@ -260,6 +260,25 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     ef.compress(g, keep=pol.topk_keep(), bound=0.5 * float(g.norm()),
                 drop_mask=loss_drop_mask(sched, "pod0", "pod1", 0.0, 26))
     assert float(ef.residual.norm()) <= 0.5 * float(g.norm())
+
+    # serving: a prefill under the flash-attention impl, decode steps with
+    # both caches, and the serve loop
+    import repro_torch.launch.serve  # noqa: F401
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import attention
+    attention.set_attention_impl("pallas")
+    toks = torch.from_numpy(data_fn(0, 0)["tokens"].numpy())
+    logits, _ = model.prefill(params, {{"tokens": toks}})
+    assert torch.isfinite(logits).all()
+    for kv_int8 in (False, True):
+        cache = model.init_cache(2, 4, kv_int8=kv_int8)
+        for pos in range(3):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, pos:pos + 1], pos)
+        assert torch.isfinite(logits).all()
+    done, _, _ = serve(model, params, [Request(0, toks[0, :4].numpy())],
+                       1, 6)
+    assert len(done[0].output) == 2
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)

@@ -262,10 +262,13 @@ def test_step_leaves_its_inputs_alone():
 
 @pytest.mark.parametrize("kind", ["prefill_32k", "decode_32k"])
 def test_serving_shapes_raise(kind):
+    """Serving shapes build serving steps (tests/test_torch_serve.py runs
+    them) and refuse the training-only gradient path."""
     cfg = get_config("qwen2-0.5b").reduced()
     mesh = make_host_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_step(cfg, get_shape(kind), mesh)
+    assert callable(build_step(cfg, get_shape(kind), mesh).fn)
+    with pytest.raises(ValueError, match="training option"):
+        build_step(cfg, get_shape(kind), mesh, grad_path="mlfabric")
 
 
 def test_remat_changes_nothing():
