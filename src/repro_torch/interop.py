@@ -1,10 +1,17 @@
-"""Parameter trees between the JAX package and the port, through numpy.
+"""Parameter and optimizer-state trees between the JAX package and the
+port, through numpy.
 
 A JAX param tree, handed over as nested dicts of numpy arrays, becomes the
 port's tree of tensors with the same keys and the same stacked ``[L, ...]``
-layer leaves, and back.  numpy has no bfloat16 of its own, so bf16 travels
-as float32: widening bf16 to f32 and narrowing that f32 back to bf16 are
-both exact.
+layer leaves, and back.  Optimizer states cross too: a ``MomentumState``
+or ``AdamWState`` (the reference's NamedTuples, whatever package defined
+them) becomes the port's class of the same name, field for field, and
+``to_numpy`` keeps the port's class, whose fields a caller hands to the
+reference's constructor.  numpy has no bfloat16 of its own, so bf16
+travels as float32: widening bf16 to f32 and narrowing that f32 back to
+bf16 are both exact.  Whole checkpoint directories need no conversion:
+both packages write the same files with the same leaf names
+(``repro_torch.checkpoint``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ def _is_float(a: np.ndarray) -> bool:
 
 def to_torch(tree: Tree, *, dtype: Optional[torch.dtype] = None,
              device: DeviceLike = None) -> Tree:
-    """numpy tree -> tensor tree on ``device``.
+    """numpy tree (params or an optimizer state) -> tensor tree on
+    ``device``.
 
     Float leaves become ``dtype`` (default: bf16 for bf16 leaves, else the
     leaf's own float type) by way of float32; other leaves keep their type.
@@ -46,7 +54,22 @@ def to_torch(tree: Tree, *, dtype: Optional[torch.dtype] = None,
         f32 = np.ascontiguousarray(a.astype(np.float32))
         return torch.from_numpy(f32).to(device=dev, dtype=target)
 
-    return tree_map(conv, tree)
+    return _as_port_states(tree_map(conv, tree))
+
+
+def _as_port_states(tree: Tree) -> Tree:
+    """Rebuild NamedTuples named like the port's optimizer states as the
+    port's classes."""
+    from .optim import AdamWState, MomentumState
+    classes = {c.__name__: c for c in (MomentumState, AdamWState)}
+    if isinstance(tree, dict):
+        return {k: _as_port_states(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        cls = classes.get(type(tree).__name__, type(tree))
+        return cls(*(_as_port_states(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_as_port_states(v) for v in tree)
+    return tree
 
 
 def to_numpy(tree: Tree) -> Tree:

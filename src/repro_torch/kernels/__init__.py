@@ -4,9 +4,10 @@
 ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 
-from .ops import (dequant_aggregate_op, flash_attention_op,
-                  grad_aggregate_op, quantize_op, scatter_aggregate_op,
-                  switch_sum_op)
+from .ops import (compress_update, dequant_aggregate_op, dequantize_op,
+                  flash_attention_op, grad_aggregate_op, quantize_op,
+                  scatter_aggregate_op, switch_sum_op)
 
-__all__ = ["dequant_aggregate_op", "flash_attention_op", "grad_aggregate_op",
-           "quantize_op", "scatter_aggregate_op", "switch_sum_op"]
+__all__ = ["compress_update", "dequant_aggregate_op", "dequantize_op",
+           "flash_attention_op", "grad_aggregate_op", "quantize_op",
+           "scatter_aggregate_op", "switch_sum_op"]

@@ -14,10 +14,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import ref
 from .dequant_aggregate import dequant_aggregate, dequant_aggregate_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .grad_aggregate import grad_aggregate, grad_aggregate_plain
-from .quantize import quantize, quantize_plain
+from .quantize import (dequantize, dequantize_plain, quantize,
+                       quantize_plain)
 from .scatter_aggregate import scatter_aggregate, scatter_aggregate_plain
 from .switch_sum import switch_sum, switch_sum_plain
 
@@ -45,12 +47,36 @@ def quantize_op(x: torch.Tensor, *, block: int = 256
     return quantize_plain(x, block=block)
 
 
+def dequantize_op(q: torch.Tensor, scales: torch.Tensor, *, block: int = 256,
+                  orig_len: Optional[int] = None) -> torch.Tensor:
+    """Unfused decode of one int8 payload: q [D_pad], scales [D_pad/block]
+    -> x f32 [orig_len or D_pad].  With ``orig_len`` the result is a view
+    of the decoded buffer."""
+    if _route(q, "dequantize_op"):
+        x = dequantize(q, scales, block=block)
+        dequantize_op.launches += 1
+    else:
+        x = dequantize_plain(q, scales, block=block)
+    return x[:orig_len] if orig_len is not None else x
+
+
+def compress_update(update_flat: torch.Tensor, *, block: int = 256
+                    ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], float]:
+    """Round-trip helper of the PS path: ``((q, scales), ratio)``, the ratio
+    being the update's bytes over the padded payload's and scales'."""
+    q, s = quantize_op(update_flat, block=block)
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    return (q, s), nbytes(update_flat) / (nbytes(q) + nbytes(s))
+
+
 def dequant_aggregate_op(q: torch.Tensor, scales: torch.Tensor,
                          weights: torch.Tensor, *, block: int = 256,
                          orig_len: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused receive path: int8 payloads [N, D_pad] -> dequantize ->
-    weighted sum -> (agg f32 [orig_len or D_pad], ||agg||^2)."""
+    weighted sum -> (agg f32 [orig_len or D_pad], ||agg||^2).  The unfused
+    composition is ``dequantize_op`` per row, stacked, then
+    ``grad_aggregate_op``, which writes and reads N decoded f32 copies."""
     if _route(q, "dequant_aggregate_op"):
         out = dequant_aggregate(q, scales, weights, block=block,
                                 orig_len=orig_len)
@@ -120,8 +146,18 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 quantize_op.launches = 0
+dequantize_op.launches = 0
 dequant_aggregate_op.launches = 0
 grad_aggregate_op.launches = 0
 switch_sum_op.launches = 0
 scatter_aggregate_op.launches = 0
 flash_attention_op.launches = 0
+
+
+# the oracles, re-exported as the reference does
+flash_attention_ref = ref.flash_attention_ref
+grad_aggregate_ref = ref.grad_aggregate_ref
+quantize_ref = ref.quantize_ref
+dequantize_ref = ref.dequantize_ref
+scatter_aggregate_ref = ref.scatter_aggregate_ref
+switch_sum_ref = ref.switch_sum_ref

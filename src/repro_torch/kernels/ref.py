@@ -1,5 +1,5 @@
-"""PyTorch twins of the reference's eager oracles (``repro/kernels/ref.py``)
-for the kernels this port carries so far.
+"""PyTorch twins of the reference's eager oracles (``repro/kernels/ref.py``),
+one for every kernel.
 
 They keep the oracles' own arithmetic: ``flash_attention_ref`` is the
 dense softmax with the oracle's causal mask ``tril(k=skv-sq)`` (the
@@ -76,6 +76,14 @@ def quantize_ref(x: torch.Tensor, *, block: int = 256
     scale = torch.clamp_min(xb.abs().amax(dim=1) / div, 1e-30)
     q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
     return q.to(torch.int8).reshape(d), scale
+
+
+def dequantize_ref(q: torch.Tensor, scales: torch.Tensor, *,
+                   block: int = 256) -> torch.Tensor:
+    """q: int8 [D], scales: [D/block] -> f32 [D], ``q * scale`` per block."""
+    d = q.shape[0]
+    xb = q.reshape(d // block, block).to(torch.float32) * scales[:, None]
+    return xb.reshape(d)
 
 
 def scatter_aggregate_ref(idx: torch.Tensor, q: torch.Tensor,

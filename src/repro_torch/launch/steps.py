@@ -13,6 +13,7 @@ logits and cache, as the reference's outputs are sharded over the batch.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
@@ -26,6 +27,7 @@ from ..dist.collectives import (plan_reduce, reduce_flat_buckets,
                                 unpack_reduced)
 from ..dist.sharding import data_axes
 from ..models import transformer as tf
+from ..models.api import value_and_grad
 from ..optim.sgd import momentum_sgd_update
 from ..tree import tree_flatten, tree_leaves, tree_unflatten
 from .mesh import Mesh
@@ -64,16 +66,13 @@ def _split(batch: Batch, n: int):
             for c in range(n)]
 
 
-def value_and_grad(params: Params, batch: Batch, cfg: ModelConfig,
-                   remat: bool) -> Tuple[Dict[str, torch.Tensor], Params]:
-    """(metrics, grads tree) of ``tf.loss_fn`` at ``params``."""
-    leaves, treedef = tree_flatten(params)
-    live = [p.detach().requires_grad_(True) for p in leaves]
-    total, metrics = tf.loss_fn(tree_unflatten(treedef, live), batch, cfg=cfg,
-                                remat=remat)
-    grads = torch.autograd.grad(total, live)
-    return ({k: v.detach() for k, v in metrics.items()},
-            tree_unflatten(treedef, list(grads)))
+def _metrics_and_grads(params: Params, batch: Batch, cfg: ModelConfig,
+                       remat: bool) -> Tuple[Dict[str, torch.Tensor], Params]:
+    """(detached metrics, grads tree) of ``tf.loss_fn`` at ``params``."""
+    (_, metrics), grads = value_and_grad(
+        functools.partial(tf.loss_fn, cfg=cfg, remat=remat), params, batch,
+        has_aux=True)
+    return {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def _mean_over(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
@@ -106,12 +105,12 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
     def train_step(params, opt_state, batch):
         local = _local_batch(batch, mesh, axes)
         if microbatches == 1:
-            metrics, grads = value_and_grad(params, local, cfg, remat)
+            metrics, grads = _metrics_and_grads(params, local, cfg, remat)
         else:
             grads = None
             loss = aux = 0.0
             for mb in _split(local, microbatches):
-                m, g = value_and_grad(params, mb, cfg, remat)
+                m, g = _metrics_and_grads(params, mb, cfg, remat)
                 g = [x.to(torch.float32) for x in tree_leaves(g)]
                 grads = g if grads is None else [a + b
                                                  for a, b in zip(grads, g)]
@@ -180,7 +179,7 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
         reduced = None
         loss = aux = 0.0
         for chunk in _split(local, overlap_chunks):
-            m, g = value_and_grad(params, chunk, cfg, remat)
+            m, g = _metrics_and_grads(params, chunk, cfg, remat)
             with torch.no_grad():
                 vecs = reduce_flat_buckets(g, layout, **reduce_kw)
                 del g

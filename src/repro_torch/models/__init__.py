@@ -1,3 +1,3 @@
-from .api import Model, build_model
+from .api import Model, build_model, value_and_grad
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "value_and_grad"]

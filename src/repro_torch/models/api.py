@@ -11,6 +11,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..tree import tree_flatten, tree_unflatten
 from . import transformer as tf
 from .layers import Params
 
@@ -45,3 +46,17 @@ def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                                      device=dev),
     )
 
+
+
+def value_and_grad(loss_fn: Callable, params: Params, batch, *,
+                   has_aux: bool = False) -> Tuple[object, Params]:
+    """``(loss_fn(params, batch), d loss / d params)``: the loss (or, with
+    ``has_aux``, ``(loss, aux)``) and the gradient tree, by autograd on
+    detached copies of the leaves (``jax.value_and_grad``'s contract; the
+    params are left as they are)."""
+    leaves, treedef = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    out = loss_fn(tree_unflatten(treedef, live), batch)
+    loss = out[0] if has_aux else out
+    return out, tree_unflatten(treedef, list(torch.autograd.grad(loss,
+                                                                 live)))

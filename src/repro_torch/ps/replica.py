@@ -9,7 +9,7 @@ updates using the latest model at the replica").
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Tuple
 
 import torch
 
@@ -37,3 +37,23 @@ class ReplicaServer(ParameterServer):
                  for ps, pr in zip(tree_leaves(primary.params),
                                    tree_leaves(self.params)))
         return float(torch.sqrt(sq))
+
+
+def promote_replica(replica: Any) -> Tuple[Params, int, int]:
+    """Unified §3.3 promotion across both replica flavors.
+
+    * ``ReplicaServer`` (real-tensor PS data plane): the replica has
+      applied an exact prefix of the server's updates — its params/version
+      become the primary's, and the lead (updates it never saw) is
+      regenerated by the *simulator*'s bookkeeping, so the lost count here
+      is 0.
+    * ``BoundedDivergenceReplica`` (``repro_torch.checkpoint``, used by
+      ``ElasticSession``): ``recover()`` reports how many offered updates
+      the replica snapshot trails by — the caller's regenerate-list.
+
+    Returns ``(params, version_or_step, n_lost_updates_to_regenerate)``.
+    """
+    if isinstance(replica, ReplicaServer):
+        return replica.params, replica.version, 0
+    params, step, lost = replica.recover()   # BoundedDivergenceReplica
+    return params, step, lost

@@ -14,8 +14,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..core.delay import adadelay_lr
+from ..models.api import value_and_grad
 from ..optim.sgd import update_norm
-from ..tree import tree_flatten, tree_unflatten
+from ..tree import tree_map
 
 Params = Any
 
@@ -31,25 +32,18 @@ class Worker:
         self._loss_fn = loss_fn
         self._has_aux = has_aux
 
-    def _grads(self, params: Params, batch: Dict[str, Any]):
-        leaves, treedef = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        out = self._loss_fn(tree_unflatten(treedef, live), batch)
-        loss = out[0] if self._has_aux else out
-        return leaves, treedef, torch.autograd.grad(loss, live)
-
     def compute_update(self, params: Params, batch: Dict[str, Any], *,
                        version: int, t: int, observed_delay: int = 0,
                        ) -> Tuple[Params, float]:
         """Returns (update tree u = -eta*grad in f32, ||u||)."""
-        leaves, treedef, grads = self._grads(params, batch)
+        _, grads = value_and_grad(self._loss_fn, params, batch,
+                                  has_aux=self._has_aux)
         if self.delay_adaptive:
             eta = adadelay_lr(self.base_lr, max(t, 1), observed_delay)
         else:
             eta = self.base_lr
         with torch.no_grad():
-            update = [-eta * (g.to(torch.float32)
-                              + self.weight_decay * p.to(torch.float32))
-                      for g, p in zip(grads, leaves)]
-        update = tree_unflatten(treedef, update)
+            update = tree_map(
+                lambda g, p: -eta * (g.to(torch.float32) + self.weight_decay
+                                     * p.to(torch.float32)), grads, params)
         return update, float(update_norm(update))

@@ -28,7 +28,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
-from repro_torch.kernels.quantize import quantize_plain
+from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
+                                         quantize_plain)
 from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
 from repro_torch.kernels.switch_sum import switch_sum_plain
 
@@ -279,6 +280,86 @@ def _assert_attn_close(out, ref):
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+class TestDequantizeOnCard:
+    @pytest.mark.parametrize("d,block", [(256, 256), (256 * 4099, 256),
+                                         (512, 16), (128 * 33, 128)])
+    @pytest.mark.parametrize("offset", [0, 4, 1])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_dequantize_kernel_bitwise(self, d, block, offset, dtype):
+        """Aligned and on views 1 and 4 bytes into a larger payload."""
+        _need_card()
+        rng = np.random.default_rng(d + offset)
+        buf = torch.from_numpy(rng.integers(-127, 128, size=d + offset,
+                                            dtype=np.int8)).cuda()
+        q = buf[offset:]
+        s = torch.from_numpy((rng.uniform(0.1, 2.0, size=d // block) * 1e-2
+                              ).astype(np.float32)).cuda()
+        if dtype == torch.float32:
+            before = ops.dequantize_op.launches
+            got = ops.dequantize_op(q, s, block=block, orig_len=d - 3)
+            assert ops.dequantize_op.launches == before + 1
+        else:
+            got = dequantize(q, s, block=block, dtype=dtype)[:d - 3]
+        torch.cuda.synchronize()
+        want = dequantize_plain(q, s, block=block, dtype=dtype)[:d - 3]
+        assert got.dtype == dtype and torch.equal(got, want)
+
+    def test_dequantize_kernel_refuses_what_it_does_not_take(self):
+        _need_card()
+        q = torch.zeros(512, dtype=torch.int8, device="cuda")
+        s = torch.ones(2, device="cuda")
+        with pytest.raises(ValueError, match="block % 16"):
+            ops.dequantize_op(q, torch.ones(64, device="cuda"), block=8)
+        with pytest.raises(ValueError, match="one card"):
+            ops.dequantize_op(q, s.cpu())
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            dequantize(q, s, dtype=torch.float16)
+        with pytest.raises(ValueError, match="int8"):
+            ops.dequantize_op(q.to(torch.int16), s)
+
+    @pytest.mark.parametrize("n", [1, 2, 5])
+    def test_unfused_receive_equals_dequant_aggregate(self, n):
+        """dequantize each payload, stack, grad_aggregate: bit-equal to the
+        fused kernel, which rounds the same products and sums in the same
+        row order."""
+        _need_card()
+        d_pad = 256 * 37
+        q, s, w = (torch.from_numpy(a).cuda() for a in _payload(n, d_pad, n))
+        fused, ssq_f = ops.dequant_aggregate_op(q, s, w, orig_len=d_pad - 9)
+        deq = torch.stack([ops.dequantize_op(q[i], s[i], orig_len=d_pad - 9)
+                           for i in range(n)])
+        unfused, ssq_u = ops.grad_aggregate_op(deq, w)
+        torch.cuda.synchronize()
+        assert torch.equal(fused, unfused)
+        assert float(ssq_u) == pytest.approx(float(ssq_f), rel=1e-5)
+
+    def test_checkpoint_round_trip_from_the_card(self, tmp_path):
+        """bf16 and f32 leaves and a NamedTuple state saved from the card
+        restore onto the card bit for bit, in their dtypes."""
+        _need_card()
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.optim import momentum_sgd_init
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = {"w": torch.randn(300, 7, generator=g, device="cuda")
+                  .bfloat16(),
+                  "b": torch.randn(5, generator=g, device="cuda")}
+        opt = momentum_sgd_init(params)
+        opt.history["w"].normal_(generator=g)
+        ck = Checkpointer(str(tmp_path))
+        ck.save(3, {"params": params, "opt": opt})
+        like = {"params": {k: torch.zeros_like(v) for k, v in
+                           params.items()},
+                "opt": momentum_sgd_init(params)}
+        step, state, _ = ck.restore(like)
+        assert step == 3
+        for a, b in ((state["params"], params),
+                     (state["opt"].history, opt.history)):
+            for k in a:
+                assert a[k].is_cuda and a[k].dtype == b[k].dtype
+                assert torch.equal(a[k], b[k])
 
 
 @pytest.mark.cuda

@@ -18,6 +18,9 @@ Tolerances:
   squares rtol 1e-5 (per-tile partials summed in different orders).
 * grad_aggregate: see ``TestGradAggregate``.
 * switch_sum: bit-equal (integer sums are exact in any order).
+* dequantize: bit-equal to the Pallas kernel in interpret mode, to the
+  jitted op and to the oracles, in f32 and bf16 (one product per element,
+  rounded once, then one cast).
 * scatter_aggregate: agg bit-equal where each sender's indices are distinct
   (one addition per column per sender, senders in order, and the Pallas
   one-hot product adds only exact zeros beside it; signed zeros compare
@@ -34,13 +37,14 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.dequant_aggregate import dequant_aggregate as j_dequant_aggregate
 from repro.kernels.grad_aggregate import grad_aggregate as j_grad_aggregate
+from repro.kernels.quantize import dequantize as j_dequantize
 from repro.kernels.quantize import quantize as j_quantize
 from repro.kernels.scatter_aggregate import scatter_aggregate as j_scatter
 from repro.kernels.switch_sum import switch_sum as j_switch_sum
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
 from repro_torch.kernels.grad_aggregate import grad_aggregate_plain
-from repro_torch.kernels.quantize import quantize_plain
+from repro_torch.kernels.quantize import dequantize_plain, quantize_plain
 from repro_torch.kernels.scatter_aggregate import scatter_aggregate_plain
 from repro_torch.kernels.switch_sum import switch_sum_plain
 
@@ -502,3 +506,87 @@ class TestSliceFourRouting:
                 torch.zeros((1, 4), dtype=torch.int8, device="meta"),
                 torch.ones(1, device="meta"), torch.ones(1, device="meta"),
                 d_out=8)
+
+
+# --------------------------------------------------------------------------- #
+# dequantize
+# --------------------------------------------------------------------------- #
+def _q_payload(d, block, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, size=d, dtype=np.int8)
+    s = (rng.uniform(0.1, 2.0, size=d // block) * 1e-2).astype(np.float32)
+    return q, s
+
+
+class TestDequantize:
+    @pytest.mark.parametrize("d,block", [(256, 256), (256 * 7, 256),
+                                         (512, 128), (96, 16)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_matches_pallas_bitwise(self, d, block, dtype):
+        q, s = _q_payload(d, block, seed=d + block)
+        jx = j_dequantize(jnp.asarray(q), jnp.asarray(s), block=block,
+                          dtype=getattr(jnp, dtype), interpret=True)
+        tx = dequantize_plain(torch.from_numpy(q), torch.from_numpy(s),
+                              block=block, dtype=getattr(torch, dtype))
+        assert tx.dtype == getattr(torch, dtype) and tx.shape == (d,)
+        np.testing.assert_array_equal(tx.float().numpy(),
+                                      np.asarray(jx, np.float32))
+
+    def test_op_and_oracles_bitwise_with_ragged_orig_len(self):
+        q, s = _q_payload(256 * 5, 256, seed=3)
+        jx = jops.dequantize_op(jnp.asarray(q), jnp.asarray(s),
+                                orig_len=256 * 5 - 77)
+        tq, ts = torch.from_numpy(q), torch.from_numpy(s)
+        tx = ops.dequantize_op(tq, ts, orig_len=256 * 5 - 77)
+        assert tx.shape == (256 * 5 - 77,) and tx.dtype == torch.float32
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        # the sliced result is a view of the decoded buffer
+        assert tx._base is not None
+        jr = jref.dequantize_ref(jnp.asarray(q), jnp.asarray(s))
+        tr = ref.dequantize_ref(tq, ts)
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(tr.numpy()[:256 * 5 - 77], tx.numpy())
+
+    def test_roundtrip_through_quantize(self):
+        x = _x(256 * 9, seed=11, scale=3.0)
+        q, s = ops.quantize_op(torch.from_numpy(x))
+        jq, js = jops.quantize_op(jnp.asarray(x))
+        np.testing.assert_array_equal(
+            ops.dequantize_op(q, s).numpy(),
+            np.asarray(jops.dequantize_op(jq, js)))
+
+    def test_compress_update_ratio(self):
+        for d in (8192, 8192 + 5):
+            x = _x(d, seed=8)
+            (q, s), ratio = ops.compress_update(torch.from_numpy(x))
+            (jq, js_), jratio = jops.compress_update(jnp.asarray(x))
+            assert ratio == pytest.approx(jratio, rel=0, abs=0)
+            np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+            np.testing.assert_array_equal(s.numpy(), np.asarray(js_))
+        assert ratio > 3.5
+
+    def test_cpu_goes_to_plain_and_meta_raises(self):
+        before = ops.dequantize_op.launches
+        ops.dequantize_op(torch.zeros(256, dtype=torch.int8), torch.ones(1))
+        assert ops.dequantize_op.launches == before
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.dequantize_op(torch.zeros(256, dtype=torch.int8,
+                                          device="meta"),
+                              torch.ones(1, device="meta"))
+
+    def test_bad_shapes_raise(self):
+        with pytest.raises(ValueError):
+            dequantize_plain(torch.zeros(300, dtype=torch.int8),
+                             torch.ones(1))
+        with pytest.raises(ValueError):
+            dequantize_plain(torch.zeros(512, dtype=torch.int8),
+                             torch.ones(1))
+
+    def test_package_exports_match_the_reference(self):
+        import repro.kernels as jk
+        import repro_torch.kernels as tk
+        assert set(jk.__all__) <= set(tk.__all__)
+        for name in ("flash_attention_ref", "grad_aggregate_ref",
+                     "quantize_ref", "dequantize_ref",
+                     "scatter_aggregate_ref", "switch_sum_ref"):
+            assert callable(getattr(ops, name))

@@ -13,7 +13,9 @@
   ``tests/test_failover.py::test_midrun_primary_kill_recovers_within_divmax``.
 * The package imports neither JAX nor the JAX package, not even after a
   world-of-one in-graph MLfabric step, the tiers, a prefill and decode
-  steps and the serve loop, and never falls back to the CPU unasked.
+  steps, the serve loop, one step of the training CLI, pod-async, sync
+  and SSP training and an elastic session, and never falls back to the
+  CPU unasked.
 """
 
 import os
@@ -279,6 +281,36 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     done, _, _ = serve(model, params, [Request(0, toks[0, :4].numpy())],
                        1, 6)
     assert len(done[0].output) == 2
+
+    # slice 3: the training CLI for one step with a checkpoint and the
+    # replica, pod-async with the int8 wire, sync, SSP, an elastic session,
+    # the unfused receive
+    import tempfile
+    from repro_torch.launch import train
+    attention.set_attention_impl("blockwise")    # training takes blockwise
+    with tempfile.TemporaryDirectory() as d:
+        run = train.train(["--steps", "1", "--batch", "2", "--seq", "16",
+                           "--div-max", "1", "--ckpt-dir", d,
+                           "--device", "cpu"])
+        assert run.losses and run.replica.syncs == 1
+    from repro_torch.dist import ElasticSession
+    from repro_torch.kernels import compress_update, dequantize_op
+    from repro_torch.ps import (PodAsyncTrainer, StaleSyncSim, SyncTrainer,
+                                compare_ssp_mlfabric)
+    quad = lambda p, b: torch.sum(torch.square(p["w"] - b["t"]))
+    tgt = lambda w, t: {{"t": torch.ones(3)}}
+    PodAsyncTrainer({{"w": torch.zeros(3)}}, quad, tgt, n_pods=2,
+                    compress=True, device="cpu").run(until_commits=2)
+    SyncTrainer({{"w": torch.zeros(3)}}, quad, tgt, n_workers=2,
+                device="cpu").run(1)
+    StaleSyncSim(2).run(2)
+    compare_ssp_mlfabric(n_workers=2, n_iterations=2)
+    sess = ElasticSession(step_fn_builder=lambda g: lambda s, b: (s, {{}}),
+                          init_state=({{"w": torch.zeros(2)}}, {{}}),
+                          device="cpu")
+    sess.run_steps([None])
+    (q, s), _ = compress_update(torch.ones(300))
+    assert dequantize_op(q, s, orig_len=300).shape == (300,)
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
