@@ -63,10 +63,12 @@ toolkit.  Every line it prints is one JSON object:
 10. ``kernel`` lines for ``flash_attention`` (in step 3): Qwen2-0.5B's 14/2
    heads of 64 in bf16, causal, timed at (B 2, S 4096) and at the prefill
    shape (B 1, S 32768) beside its plain version, SDPA and its bound
-   (f32 CUDA-core flops; the bf16 tensor-core bound beside it); checked,
-   untimed, at D 32 f32, 32/32 heads, not causal, a ragged S of 4000 and
-   on [B, S, H, D] views.  Within atol 2e-5 / rtol 1e-5 in f32 and one
-   bf16 ulp in bf16.
+   (both products on the bf16 tensor cores; the earlier bound with p.v
+   at the f32 rate and the kernel's own four products beside it);
+   checked, untimed, at D 32 f32, 32/32 heads, not causal, a ragged S of
+   4000, on [B, S, H, D] views, D 128 f32, D 32 and 128 in bf16 and S of
+   16 and 48.  Within atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in
+   bf16.
 11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
    f32 under the "pallas" impl, card against CPU: prefill logits and
    cache, 24 decode steps (teacher-forced, then greedy) with the
@@ -1653,17 +1655,27 @@ def attn_work(b: int, h: int, kvh: int, s: int, d: int, causal: bool):
 
 
 def attn_bound(nbytes: float, flops: float) -> tuple:
-    """(bound_ms, bound_by) of one bf16 attention call.  q.k^T of bf16
-    inputs is exact on the bf16 tensor cores (bf16 products are exact in
-    f32, summed in f32), so it counts at their rate; p.v takes p in f32,
-    as the reference keeps it, so it counts at the f32 CUDA-core rate.
-    The two run on different units and may overlap, so the operations
-    take the larger of their two times (the exps are not counted)."""
-    qk_s, pv_s = flops / BF16_TC_FLOPS, flops / F32_FLOPS
-    ops_s = max(qk_s, pv_s)
+    """(bound_ms, bound_by) of one bf16 attention call: both products
+    (q.k^T and p.v, ``flops`` each) at the bf16 tensor cores' rate, the
+    least any design can take (the exps are not counted), or the bytes if
+    they take longer."""
+    ops_s = 2 * flops / BF16_TC_FLOPS
     bytes_s = nbytes / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations")
+
+
+def attn_bound_f32_pv_ms(flops: float) -> float:
+    """The bound of a design that keeps p.v on the CUDA cores, as the f32
+    body does: q.k^T on the bf16 tensor cores and p.v, with p in f32, at
+    the f32 CUDA-core rate, the larger of the two (they run on different
+    units)."""
+    return max(flops / BF16_TC_FLOPS, flops / F32_FLOPS) * 1e3
+
+
+# the bf16 kernel's own tensor-core work: q.k^T once and p.v three times
+# (p split exactly into three bf16 terms, csrc/flash_attention.cu)
+ATTN_DESIGN_PRODUCTS = 4
 
 
 def attn_check(out, ref, what: str) -> dict:
@@ -1700,8 +1712,10 @@ def kernel_flash_attention(dev, rows) -> None:
     """Timed at (B 2, S 4096) and at the prefill shape (B 1, S 32768),
     Qwen2-0.5B's 14/2 heads of 64, bf16, causal; held against the plain
     version there and, untimed, at D 32 f32, 32/32 heads (stablelm), not
-    causal, a ragged S of 4000 and [B, S, H, D] views.  ``library_ms`` is
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``."""
+    causal, a ragged S of 4000, [B, S, H, D] views, D 128 f32, D 32 and
+    128 in bf16 and S of 16 and 48.  ``library_ms`` is
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+    ``bound_ms`` counts both products on the bf16 tensor cores."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ops import flash_attention_op
@@ -1743,9 +1757,11 @@ def kernel_flash_attention(dev, rows) -> None:
                   "dtype": "bfloat16", "causal": True, "layout": "BSHD views",
                   **row, "flops": 2 * flops, "bytes": nbytes,
                   "bound_share": bound / ms,
+                  "bound_f32_pv_ms": attn_bound_f32_pv_ms(flops),
+                  "design_products": ATTN_DESIGN_PRODUCTS,
+                  "design_tensor_core_ms":
+                      ATTN_DESIGN_PRODUCTS * flops / BF16_TC_FLOPS * 1e3,
                   "bound_all_f32_ms": 2 * flops / F32_FLOPS * 1e3,
-                  "bound_tensor_core_bf16_ms":
-                      2 * flops / BF16_TC_FLOPS * 1e3,
                   "tflops": 2 * flops / ms / 1e9})
             rows["flash_attention"] = row
             del q, k, v
@@ -1761,6 +1777,13 @@ def kernel_flash_attention(dev, rows) -> None:
                 "[B,S,H,D] views": (2, 14, 2, 2048, 64, torch.bfloat16, True,
                                     True),
                 "D 128 f32": (1, 8, 2, 1000, 128, torch.float32, True, True),
+                "D 32 bf16": (2, 4, 2, 1024, 32, torch.bfloat16, True,
+                              False),
+                "D 128 bf16": (1, 8, 2, 1000, 128, torch.bfloat16, True,
+                               True),
+                "S 16": (1, 14, 2, 16, 64, torch.bfloat16, True, True),
+                "S 48 not causal": (1, 14, 2, 48, 64, torch.bfloat16, False,
+                                    False),
         }.items():
             q, k, v = inputs(b, h, kvh, s, d, dtype, seed=s + h,
                              strided=strided)

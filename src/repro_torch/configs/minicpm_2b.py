@@ -1,8 +1,8 @@
 """MiniCPM-2B [arXiv:2404.06395]. 40L d=2304 36H ff=5760; WSD LR schedule.
 
-Llama-like architecture; the WSD (warmup-stable-decay) schedule ships in
-the reference's ``repro/optim/schedule.py`` and is selected by this config
-(the port has no schedules yet: ROADMAP item 3).
+Llama-like architecture; the WSD (warmup-stable-decay) schedule is
+``optim/schedule.py:wsd_schedule``, as in the reference's
+``repro/optim/schedule.py``, and is selected by this config.
 """
 
 from .base import ModelConfig, register

@@ -11,43 +11,86 @@
 //   Head h reads KV head h / (H / KVH).  Scores s = (q . k) * scale in f32,
 //   masked to -1e30 where causal and k_pos > q_pos (no offset: the Pallas
 //   kernel's mask), online softmax over key tiles, out = acc / max(l,
-//   1e-30) cast to q's dtype (f32 or bf16).  All math is f32.
+//   1e-30) cast to q's dtype (f32 or bf16).  p stays f32, as in the Pallas
+//   kernel: p . v is exact products of p and v summed in f32.
 //
 // What bounds it on an H100: operations.  A causal call does
 // 4 * D * H * B * S(S+1)/2 flops (two products of every unmasked (q, k)
-// pair); at S = 32768, B = 1, H = 14, D = 64 that is 1.92e12, 28.7 ms at
-// the 67 TFLOP/s f32 rate of the CUDA cores, against 0.04 ms for its 134 MB
-// of q, k, v and out.  (The tensor cores would bring the bound to 1.95 ms
-// in bf16; that is a later redesign with wgmma, not this kernel.)
+// pair); at S = 32768, B = 1, H = 14, D = 64 that is 1.92e12, 1.95 ms at the
+// 989 TFLOP/s of the bf16 tensor cores, against 0.04 ms for its 134 MB of
+// q, k, v and out.  The exps (one per unmasked pair, 7.5e9 there) take
+// about 1.9 ms on the SFUs (16 a clock per SM): a second floor beside the
+// products, which this design does not hide (the softmax of a tile runs
+// between its two products, in the same warps).
 //
-// Design (simple and right first):
-// * One CTA of 128 threads per (64-row q tile, b * h).  The grid's x is
-//   b * h and its y the q tile, longest tile first, so the causal triangle's
-//   long tiles start early and the short ones fill in at the end.
-// * The q tile and each 64-key K and V tile are staged in shared memory as
-//   f32 (rows past Sq or Skv are zero).  Each thread holds a 4 x 8 block
-//   of the 64 x 64 score tile in registers (rows ty + 16 i, keys tx + 8 j)
-//   and 4 rows x D/8 columns of the output accumulator; a row's max and
-//   sum are reduced across the 8 threads that share it with warp shuffles.
-//   P goes through shared memory for the P.V product.  Rows are padded so
-//   that the 16-byte shared loads of a warp meet no bank conflict.
-// * Keys past Skv (a ragged last tile) are masked like causal ones; a
-//   ragged q tile computes zero rows and stores nothing for them.
-// * Causal tile skip: a key tile that starts past the q tile's last row is
-//   not visited.  This is exact, not an approximation: for such a tile
-//   every score is -1e30, so m_new = m_prev, alpha = exp(0) = 1 and
-//   p = exp(-1e30 - m_prev) = 0, and the state (m, l, acc) would come out
-//   unchanged bit for bit.  Key 0 is visited first and is unmasked for every
-//   row, so m is a real score from the first tile on and no row is fully
-//   masked.
-// * Accurate expf and IEEE division; no flag relaxes them.
-// 64-bit offsets throughout.
+// Two kernels, chosen by dtype:
+//
+// * bf16 (flash_kernel_wgmma): the tensor cores.  One CTA of one warpgroup
+//   (128 threads) per (64-row q tile, b * h); the grid's x is b * h and its
+//   y the q tile, longest tile first, so the causal triangle's long tiles
+//   start early and the short ones fill in at the end.
+//   - q.k^T: bf16 wgmma m64n64k16 with f32 accumulation, Q and the K tile
+//     both K-major in shared memory.  bf16 x bf16 products are exact in f32,
+//     so the scores are the plain version's up to summation order.
+//   - p.v: p is split into three bf16 terms, p = p1 + p2 + p3, exactly (each
+//     residual p - p1, then - p2, is exact in f32, and 3 x 8 significand bits
+//     cover f32's 24), and three bf16 wgmma m64nDk16 accumulate p1.v, p2.v
+//     and p3.v into one f32 accumulator: every product is exact, as in the
+//     f32 plain version.  p goes from the score accumulator straight into
+//     the register A operand (for 16-bit types the accumulator fragment's
+//     layout is the A fragment's), so it never touches shared memory; V is
+//     read N-major (the transpose bit).  That is 4 products' worth of
+//     tensor-core work per pair instead of 2: its own bound is twice the
+//     all-tensor-core one.
+//   - K and V arrive by cp.async (16 bytes a thread, zero-filled past Skv
+//     and Sq) into a ring of two stages: tile kt + 1 loads while tile kt is
+//     computed.  Shared memory holds the tiles in wgmma's no-swizzle layout
+//     of 8-row x 16-byte core matrices, which is also the order of the
+//     copies, so the 16-byte stores meet no bank conflict.
+//   - Each tile's p.v goes into a fresh accumulator, and the running sum
+//     acc = acc * alpha + pv is taken on the CUDA cores, rounded to
+//     nearest as in the plain version.  The tensor cores' own f32 sums lean
+//     one way: one tile's p.v summed 512 times through them on an H100 is
+//     off by 1.3e-7 (mean, signed) and 7.2e-5 (largest) of the column's
+//     absolute sum, against -9e-9 and 3.2e-6 this way
+//     (scripts/probe_kernels.py), and a 32k prefill summed through them
+//     broke the one-ulp check.
+//   - Softmax in the plain version's order: mask, row max, exp, rescale,
+//     sum.  The exponentials are base 2 of scores prescaled by
+//     scale * log2(e), one FFMA and one SFU ex2 each: the instruction
+//     exp2f is built on, without exp2f's rescale of results below 2^-126
+//     (they flush to zero: such a p lies below an ulp of every sum it
+//     enters, whose largest term is 1).  On the H100 the bf16 body is
+//     bound by these per-score instructions (mask, max, exp, sum, the
+//     three-term split), not by the tensor cores: a two-term split, with a
+//     third less tensor-core work, ran no faster.
+//     The division is IEEE.  Only the tiles that straddle the diagonal or
+//     Skv are masked.
+// * f32 (flash_kernel): the CUDA cores.  One CTA of 128
+//   threads per (64-row q tile, b * h); the q tile and each 64-key K and V
+//   tile staged in shared memory; each thread holds a 4 x 8 block of the
+//   score tile and 4 rows x D/8 columns of the accumulator; P goes through
+//   shared memory for the P.V product.
+//
+// In both: keys past Skv (a ragged last tile) are masked like causal ones; a
+// ragged q tile computes zero rows and stores nothing for them.  Causal tile
+// skip: a key tile that starts past the q tile's last row is not visited.
+// This is exact, not an approximation: for such a tile every score is
+// -1e30, so m_new = m_prev, alpha = exp(0) = 1 and p = exp(-1e30 - m_prev)
+// = 0, and the state (m, l, acc) would come out unchanged bit for bit.  Key
+// 0 is visited first and is unmasked for every row, so m is a real score
+// from the first tile on and no row is fully masked.  64-bit offsets
+// throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// --------------------------------------------------------------------------
+// f32: the CUDA cores
+// --------------------------------------------------------------------------
 
 constexpr int kBQ = 64;            // q rows per CTA
 constexpr int kBK = 64;            // keys per tile
@@ -71,32 +114,6 @@ struct Io<float> {
   }
   __device__ static void store4(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  // bf16 -> f32 is exact: the 16 bits are the top half of the f32
-  __device__ static float widen(uint32_t bits16) {
-    return __uint_as_float(bits16 << 16);
-  }
-  __device__ static uint32_t narrow(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = widen(w[i] & 0xffffu);
-      v[2 * i + 1] = widen(w[i] >> 16);
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* v) {
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(narrow(v[0]) | (narrow(v[1]) << 16),
-                   narrow(v[2]) | (narrow(v[3]) << 16));
   }
 };
 
@@ -285,9 +302,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const Strides& st, int64_t bh, int h_q, int group, int64_t sq,
-           int64_t skv, float scale, int causal, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                const Strides& st, int64_t bh, int h_q, int group,
+                int64_t sq, int64_t skv, float scale, int causal,
+                cudaStream_t stream) {
   const int64_t n_qt = (sq + kBQ - 1) / kBQ;
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -303,33 +321,447 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               const Strides& st, int64_t bh, int h_q, int group, int64_t sq,
-               int64_t skv, int d, float scale, int causal,
-               cudaStream_t stream) {
+int dispatch_simt(const void* q, const void* k, const void* v, void* o,
+                  const Strides& st, int64_t bh, int h_q, int group,
+                  int64_t sq, int64_t skv, int d, float scale, int causal,
+                  cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
-                           causal, stream);
+      return launch_simt<T, 32>(q, k, v, o, st, bh, h_q, group, sq, skv,
+                                scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
-                           causal, stream);
+      return launch_simt<T, 64>(q, k, v, o, st, bh, h_q, group, sq, skv,
+                                scale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
-                            causal, stream);
+      return launch_simt<T, 128>(q, k, v, o, st, bh, h_q, group, sq, skv,
+                                 scale, causal, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// --------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores
+// --------------------------------------------------------------------------
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+// wgmma m64nNk16, bf16 in, f32 accumulators (N / 2 a thread): ss for the
+// scores (N = 64 keys), rs for p . v (N = D)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (+)= A . B, A from registers (four 32-bit words of bf16 pairs), B
+  // N-major from shared memory (transpose bit set)
+  __device__ __forceinline__ static void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A . B^T, A and B K-major from shared memory (descriptors)
+  __device__ __forceinline__ static void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+  // d (+)= A . B, A from registers (four 32-bit words of bf16 pairs), B
+  // N-major from shared memory (transpose bit set)
+  __device__ __forceinline__ static void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (+)= A . B, A from registers (four 32-bit words of bf16 pairs), B
+  // N-major from shared memory (transpose bit set)
+  __device__ __forceinline__ static void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}"
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
+
+
+// A shared-memory matrix descriptor, no swizzle: the start address and the
+// byte steps between core matrices along K (lbo) and along M or N (sbo)
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo,
+                                         uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((a & 0x3ffffu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32;
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register accesses across the async wgmma
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Rows [r0, r0 + 64) of a [S, D] slab (row stride `ld` elements) into
+// shared memory as 8-row x 16-byte core matrices, row group major: the
+// 16-byte chunk c (row (c / 8 / (D/8)) * 8 + c % 8, columns 8 * ((c / 8) %
+// (D/8))) goes to byte 16 c.  Rows at or past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_tile(const bf16* __restrict__ g,
+                                          int64_t ld, int64_t r0, int64_t n,
+                                          bf16* s) {
+  constexpr int kJ = D / 8;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(s));
+#pragma unroll
+  for (int c = threadIdx.x; c < 8 * D; c += 128) {
+    const int64_t row = r0 + ((c >> 3) / kJ) * 8 + (c & 7);
+    const int col = ((c >> 3) % kJ) * 8;
+    const bool in = row < n;
+    const bf16* src = in ? g + row * ld + col : g;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     base + 16 * c),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// two floats rounded to bf16 (one cvt.rn.bf16x2), lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the two bf16 of a packed word, widened (exact)
+__device__ __forceinline__ float lo_of(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_of(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// 2^x by the SFU's ex2 (the instruction exp2f is built on; exp2f only adds
+// a rescale for results below 2^-126, which flush to zero here)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x0, x1 -> three packed bf16 words whose sums are x0 and x1 exactly: each
+// residual x - bf16(x) is exact in f32, and three 8-bit significands cover
+// f32's 24
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& w1,
+                                       uint32_t& w2, uint32_t& w3) {
+  w1 = pack(x0, x1);
+  x0 -= lo_of(w1);
+  x1 -= hi_of(w1);
+  w2 = pack(x0, x1);
+  w3 = pack(x0 - lo_of(w2), x1 - hi_of(w2));
+}
+
+constexpr int kTile = 64;      // q rows per CTA and keys per K/V tile
+constexpr int kThreads = 128;  // one warpgroup
+
+template <int D>
+constexpr int smem_bytes() {
+  return 2 * kTile * D * 5;  // Q, and two stages of K and V
+}
+
+template <int D, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   Strides st, int h_q, int group, int64_t sq, int64_t skv,
+                   float scale, int causal, int64_t n_qt) {
+  constexpr uint32_t kCore = 128;           // bytes of one core matrix
+  constexpr uint32_t kRowGroup = 16 * D;    // bytes of 8 rows x D
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // Q, then stage 0's K and V, then stage 1's: 64 x D each
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  auto k_stage = [qs](int st) { return qs + (1 + 2 * st) * kTile * D; };
+  auto v_stage = [qs](int st) { return qs + (2 + 2 * st) * kTile * D; };
+
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / h_q, h = bh % h_q, kh = h / group;
+  const int64_t q0 = (n_qt - 1 - static_cast<int64_t>(blockIdx.y)) * kTile;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* kb = k + b * st.k[0] + kh * st.k[1];
+  const bf16* vb = v + b * st.v[0] + kh * st.v[1];
+  bf16* ob = o + b * st.o[0] + h * st.o[1];
+
+  // fragment of the 64-row accumulators: rows r and r + 8, columns
+  // 8 j + cq + {0, 1} for each block j of 8 columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row0 = q0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
+  const int cq = 2 * (lane & 3);
+
+  const int64_t k_end = causal && q0 + kTile < skv ? q0 + kTile : skv;
+  const int64_t n_kt = (k_end + kTile - 1) / kTile;
+  // scores in base 2: exp2(s * scale * log2(e) - m) is exp(s * scale - m')
+  // up to f32 rounding; the row max is taken over the raw scores (scale >
+  // 0 keeps their order) so that one FFMA scales and shifts each
+  const float scale_log2 = scale * 1.44269504088896341f;
+
+  copy_tile<D>(qb, st.q[2], q0, sq, qs);
+  copy_tile<D>(kb, st.k[2], 0, skv, k_stage(0));
+  copy_tile<D>(vb, st.v[2], 0, skv, v_stage(0));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const uint64_t dq = desc(qs, kCore, kRowGroup);
+  float s[32], acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int64_t kt = 0; kt < n_kt; ++kt) {
+    const int stage = static_cast<int>(kt & 1);
+    if (kt + 1 < n_kt) {
+      copy_tile<D>(kb, st.k[2], (kt + 1) * kTile, skv, k_stage(stage ^ 1));
+      copy_tile<D>(vb, st.v[2], (kt + 1) * kTile, skv, v_stage(stage ^ 1));
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    // the tile's generic-proxy writes become visible to wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q . K^T: D / 16 steps of 16 along D (two core matrices each)
+    const uint64_t dk = desc(k_stage(stage), kCore, kRowGroup);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<64>::ss(s, dq + ((2 * kCore * kk) >> 4),
+                    dk + ((2 * kCore * kk) >> 4), kk > 0);
+    commit_and_wait();
+    pin<32>(s);
+
+    const int64_t k0 = kt * kTile;
+    const bool masked = k0 + kTile > skv || (causal && k0 + kTile - 1 > q0);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i];
+      if (masked) {
+        const int64_t col = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int64_t row = (i & 2) ? row1 : row0;
+        if (col >= skv || (causal && col > row)) x = kNegInf;
+      }
+      s[i] = x;
+      if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+    }
+    // the 4 lanes of a quad share their rows
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // m is kept in scaled units; a masked score stays -1e30 * scale_log2
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float alpha0 = ex2(m0 - mn0), alpha1 = ex2(m1 - mn1);
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? -mn1 : -mn0));
+      s[i] = p;
+      if (i & 2) sum1 += p; else sum0 += p;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+    // p = p1 + p2 + p3 in bf16, as A fragments: for keys 16 kk .. 16 kk +
+    // 15, word w of the fragment holds accumulator entries 8 kk + 2 w and
+    // 8 kk + 2 w + 1
+    uint32_t a[3][16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split3(s[2 * i], s[2 * i + 1], a[0][i], a[1][i], a[2][i]);
+
+    // P . V of this tile into a fresh accumulator, smallest term first: V
+    // is [keys x D] with D contiguous, N-major for wgmma; 16 keys are two
+    // core matrices along K, kRowGroup bytes apart.  The tensor cores sum
+    // only this tile's 192 products a column; the running sum over tiles
+    // is rounded to nearest on the CUDA cores (see the note at the top)
+    float pv[D / 2];
+    const uint64_t dv = desc(v_stage(stage), kRowGroup, kCore);
+    fence();
+#pragma unroll
+    for (int t = 2; t >= 0; --t)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<D>::rs(pv, &a[t][4 * kk], dv + ((2 * kRowGroup * kk) >> 4),
+                     t < 2 || kk > 0);
+    commit_and_wait();
+    pin<D / 2>(pv);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = acc[i] * ((i & 2) ? alpha1 : alpha0) + pv[i];
+    __syncthreads();  // every read of this stage is done before it refills
+  }
+
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int64_t row = (i & 2) ? row1 : row0;
+    if (row >= sq) continue;
+    const float den = (i & 2) ? den1 : den0;
+    *reinterpret_cast<uint32_t*>(ob + row * st.o[2] + 8 * (i >> 2) + cq) =
+        pack(acc[i] / den, acc[i + 1] / den);
+  }
+}
+
+// CTAs an SM the registers are cut for: at D 64 three fit without spills
+// (166 registers), which takes a 32k prefill's call from 14.4 to 12.9 ms
+// on an H100 against the compiler's own choice (194 registers, fewer
+// CTAs; scripts/probe_kernels.py)
+template <int D>
+constexpr int min_blocks() {
+  return D == 32 ? 4 : D == 64 ? 3 : 1;
+}
+
+template <int D, int kMinBlocks = min_blocks<D>()>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides& st, int64_t bh, int h_q, int group, int64_t sq,
+           int64_t skv, float scale, int causal, cudaStream_t stream) {
+  const int64_t n_qt = (sq + kTile - 1) / kTile;
+  const int smem = smem_bytes<D>();
+  auto kernel = flash_kernel_wgmma<D, kMinBlocks>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(static_cast<unsigned int>(bh), static_cast<unsigned int>(n_qt));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), st, h_q, group, sq,
+      skv, scale, causal, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const Strides& st, int64_t bh, int h_q, int group, int64_t sq,
+             int64_t skv, int d, float scale, int causal,
+             cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
+                        causal, stream);
+    case 64:
+      return launch<64>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
+                        causal, stream);
+    case 128:
+      return launch<128>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
+                         causal, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// q, k, v, o: device pointers, 16-byte aligned, f32 (dtype 0) or bf16
-// (dtype 1); shape = {B, H, KVH, Sq, Skv, D} with D in {32, 64, 128} and
-// H % KVH == 0; strides: 16 int64 in elements (q, k, v, o, each batch,
-// head, seq, dim), dim strides 1 and the others multiples of 16 bytes.
-// Launches on `stream` and returns the CUDA error of the launch (0 when it
-// was accepted).
+// q, k, v, o: device pointers, 16-byte aligned, f32 (dtype 0, the CUDA-core
+// kernel) or bf16 (dtype 1, the wgmma kernel); shape = {B, H, KVH, Sq, Skv,
+// D} with D in {32, 64, 128} and H % KVH == 0; strides: 16 int64 in
+// elements (q, k, v, o, each batch, head, seq, dim), dim strides 1 and the
+// others multiples of 16 bytes.  Launches on `stream` and returns the CUDA
+// error of the launch (0 when it was accepted).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const int64_t* shape,
@@ -351,13 +783,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = static_cast<int>(h / kvh);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, st, b * h, static_cast<int>(h),
-                             group, sq, skv, static_cast<int>(d), scale,
-                             causal, s);
+    return dispatch_simt<float>(q, k, v, o, st, b * h, static_cast<int>(h),
+                                group, sq, skv, static_cast<int>(d), scale,
+                                causal, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, st, b * h,
-                                     static_cast<int>(h), group, sq, skv,
-                                     static_cast<int>(d), scale, causal, s);
+    return wg::dispatch(q, k, v, o, st, b * h, static_cast<int>(h), group,
+                        sq, skv, static_cast<int>(d), scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,7 +11,7 @@ runs at import time: the CPU tests import every module on hosts without
 No flag may relax IEEE arithmetic (``--use_fast_math``, ``-prec-div=false``,
 ``-ftz=true``): the quantizer's payload must match the plain version bit for
 bit, the aggregators' sums must match their plain loops bit for bit, and
-the attention kernel's ``expf`` and division stay the accurate ones.
+the attention kernel's exponentials and division stay the accurate ones.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ arguments: the CUDA kernel ignores both and tiles 64 x 64 (what suits
 Hopper's shared memory, not the TPU's VMEM), the plain version steps over
 keys in blocks of ``block_k``.  Neither has a backward: the reference's
 Pallas kernel has none either.
+
+The kernel has two bodies in one source, chosen by dtype: bf16 inputs run
+on the tensor cores (``wgmma``: q.k^T in bf16 with f32 sums, and p.v with
+p split exactly into three bf16 terms, so every product stays exact as
+with p in f32; K and V arrive by ``cp.async``), f32 inputs on the CUDA
+cores.  No input of one type reaches the other body.
 """
 
 from __future__ import annotations
@@ -106,11 +112,12 @@ def _aligned(t: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """The CUDA kernel.  q, k, v: f32 or bf16 (all one type) on one card,
-    D in {32, 64, 128}, any strides with a unit last stride and 16-byte
-    steps (so transposed views of [B, S, H, D] tensors go in as they are)
-    -> [B, H, Sq, D] of q's dtype, laid out as q is.  ``block_q`` and
-    ``block_k`` are accepted and not used."""
+    """The CUDA kernel.  q, k, v: f32 (the CUDA-core body) or bf16 (the
+    tensor-core body), all one type, on one card, D in {32, 64, 128}, any
+    strides with a unit last stride and 16-byte steps (so transposed views
+    of [B, S, H, D] tensors go in as they are) -> [B, H, Sq, D] of q's
+    dtype, laid out as q is.  ``block_q`` and ``block_k`` are accepted and
+    not used."""
     _check_shapes(q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel needs q, k, v on one card, "

@@ -32,13 +32,15 @@ from .build import check_launch, load
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """(library, entry point, columns per CTA of the norm partials)."""
+    """(library, entry point, columns per output tile)."""
     lib = load("scatter_aggregate")
     fn = lib.repro_scatter_aggregate
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_scatter_aggregate_tile.restype = ctypes.c_int64
+    lib.repro_scatter_aggregate_scratch.argtypes = [ctypes.c_int64] * 3
+    lib.repro_scatter_aggregate_scratch.restype = ctypes.c_int64
     return lib, fn, lib.repro_scatter_aggregate_tile()
 
 
@@ -92,14 +94,21 @@ def scatter_aggregate(idx: torch.Tensor, q: torch.Tensor,
             raise ValueError(f"scatter_aggregate kernel takes contiguous {dt}"
                              f" {name}, got {t.dtype}")
     n, k = idx.shape
+    if n > 65535 or n * k >= 2 ** 31:
+        raise ValueError(f"scatter_aggregate kernel takes N <= 65535 senders "
+                         f"and N * K < 2^31 slots, got {n} x {k}")
     lib, fn, tile = _kernel()
     agg = torch.empty(d_out, dtype=torch.float32, device=idx.device)
     partial = torch.empty(-(-d_out // tile), dtype=torch.float32,
                           device=idx.device)
+    # the (tile, sender) count and offset tables, each slot's rank and its
+    # placed record: int32 words, sized by the library
+    scratch = torch.empty(lib.repro_scatter_aggregate_scratch(n, k, d_out),
+                          dtype=torch.int32, device=idx.device)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(idx.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                weights.data_ptr(), agg.data_ptr(), partial.data_ptr(), n, k,
-                d_out, stream)
+                weights.data_ptr(), agg.data_ptr(), partial.data_ptr(),
+                scratch.data_ptr(), n, k, d_out, stream)
     check_launch(lib, rc, "scatter_aggregate")
     return agg, torch.sum(partial)

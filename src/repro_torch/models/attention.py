@@ -3,10 +3,13 @@ its KV-cache decode (``repro/models/attention.py``) in PyTorch.
 
 Sequences of at most ``kv_block`` keys take the one-block path
 (``_plain_attention``); longer ones take the blockwise online-softmax loop
-(``_flash_fwd_core``) so no [S, S] score matrix is built.  The backward is
-torch autograd through this math: in the reference the backward is jnp
-code too (``_flash_vjp_bwd``), not a kernel.  Score matmuls accumulate and
-return f32, as ``preferred_element_type=f32`` does in the reference.
+(``_flash_fwd_core``) so no [S, S] score matrix is built.  That loop is
+differentiated as the reference's ``jax.custom_vjp`` (``_flash_vjp``) does
+it, by ``_FlashAttention``: the forward saves only (q, k, v, out, lse) and
+the backward recomputes each KV block's scores from ``lse``, in plain
+PyTorch (the reference's backward is jnp code too, not a kernel).  Score
+matmuls accumulate and return f32, as ``preferred_element_type=f32`` does
+in the reference.
 
 Under ``set_attention_impl("pallas")`` full-sequence attention with
 ``Sq == Skv`` (the prefill) goes to the flash-attention kernel instead, as
@@ -72,8 +75,17 @@ def _causal_bias(sq, skv, q_offset, causal, device):
     return bias.triu(1 + q_offset)[None, None, None]
 
 
+def _block_mask(sq, kv_block, q_offset, start, device):
+    """True where ``q_offset + q_pos >= k_pos`` for keys [start, start +
+    kv_block); [Sq, kv_block]."""
+    q_pos = torch.arange(q_offset, q_offset + sq, device=device)
+    k_pos = start + torch.arange(kv_block, device=device)
+    return q_pos[:, None] >= k_pos[None, :]
+
+
 def _flash_fwd_core(q, k, v, causal, q_offset, kv_block, scale):
-    """Online softmax over KV blocks.  Returns out [B,Sq,H,Dv]."""
+    """Online softmax over KV blocks.  Returns (out [B,Sq,H,Dv], lse
+    [B,KVH,G,Sq] f32)."""
     b, sq, h, dk = q.shape
     _, skv, kvh, dv = v.shape
     g = h // kvh
@@ -82,16 +94,15 @@ def _flash_fwd_core(q, k, v, causal, q_offset, kv_block, scale):
                    device=q.device)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
     o = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=q.device)
-    q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)
     for start in range(0, skv, kv_block):
         kk = k[:, start:start + kv_block]
         vv = v[:, start:start + kv_block]
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                               kk.to(torch.float32)) * scale
         if causal:
-            k_pos = start + torch.arange(kv_block, device=q.device)
-            scores = scores.masked_fill(q_pos[:, None] < k_pos[None, :],
-                                        NEG_INF)
+            scores = scores.masked_fill(
+                ~_block_mask(sq, kv_block, q_offset, start, q.device),
+                NEG_INF)
         m_new = torch.maximum(m, torch.amax(scores, dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(scores - m_new[..., None])
@@ -102,7 +113,62 @@ def _flash_fwd_core(q, k, v, causal, q_offset, kv_block, scale):
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
     out = (o / l_safe[..., None]).permute(0, 3, 1, 2, 4)
-    return out.reshape(b, sq, h, dv).to(q.dtype)
+    lse = m + torch.log(l_safe)
+    return out.reshape(b, sq, h, dv).to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, do, causal, q_offset, kv_block, scale):
+    """The reference's ``_flash_vjp_bwd``: per KV block, p = exp(s - lse)
+    recomputed in f32, then dv = p^T do, ds = p (do v^T - delta) scale,
+    dq += ds k, dk = ds^T q.  Grads come back in the inputs' dtypes."""
+    b, sq, h, dk = q.shape
+    _, skv, kvh, dv = v.shape
+    g = h // kvh
+    f32 = torch.float32
+    qg = q.reshape(b, sq, kvh, g, dk).to(f32)
+    dog = do.reshape(b, sq, kvh, g, dv).to(f32)
+    outg = out.reshape(b, sq, kvh, g, dv).to(f32)
+    # delta = rowsum(do * out): the softmax-jacobian diagonal correction
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", dog, outg)
+    dq = torch.zeros((b, sq, kvh, g, dk), dtype=f32, device=q.device)
+    dk_out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv_out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for start in range(0, skv, kv_block):
+        kkf = k[:, start:start + kv_block].to(f32)
+        vvf = v[:, start:start + kv_block].to(f32)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kkf) * scale
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            p = p.masked_fill(
+                ~_block_mask(sq, kv_block, q_offset, start, q.device), 0.0)
+        dv_out[:, start:start + kv_block] = torch.einsum(
+            "bhgqk,bqhgd->bkhd", p, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vvf)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kkf)
+        dk_out[:, start:start + kv_block] = torch.einsum(
+            "bhgqk,bqhgd->bkhd", ds, qg)
+    return dq.reshape(b, sq, h, dk).to(q.dtype), dk_out, dv_out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The blockwise loop with the reference's flash VJP: saves exactly
+    (q, k, v, out, lse), recomputes the scores block by block in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_block, scale):
+        out, lse = _flash_fwd_core(q, k, v, causal, q_offset, kv_block,
+                                   scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, kv_block, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, do, *ctx.args),
+                None, None, None, None)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,7 +194,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, _causal_bias(sq, skv, q_offset, causal, q.device), scale)
     if skv % kv_block != 0:
         kv_block = next(b for b in range(kv_block, 0, -1) if skv % b == 0)
-    return _flash_fwd_core(q, k, v, causal, q_offset, kv_block, scale)
+    return _FlashAttention.apply(q, k, v, causal, q_offset, kv_block, scale)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

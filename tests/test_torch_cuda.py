@@ -436,3 +436,120 @@ class TestFlashAttentionOnCard:
                 2, 8, kv_int8=kv_int8), toks, 3)
             torch.testing.assert_close(logits.cpu(), want, rtol=1e-5,
                                        atol=2e-5)
+
+
+_FLASH_BF16 = [
+    (d, s, causal, heads, strided)
+    for d in (32, 64, 128)
+    for s in (16, 48, 4000, 4096)
+    for causal, heads, strided in ((True, (14, 2), True),
+                                   (False, (32, 32), False))]
+
+
+@pytest.mark.cuda
+class TestFlashWgmmaOnCard:
+    """The bf16 kernel (wgmma on the tensor cores, p split into three exact
+    bf16 terms) against its plain version with ``attn_check``'s rule: one
+    bf16 ulp, |out - ref| <= 1e-6 + 2^-7 |ref|."""
+
+    @pytest.mark.parametrize("d,s,causal,heads,strided", _FLASH_BF16)
+    def test_flash_attention_bf16_kernel(self, d, s, causal, heads, strided):
+        _need_card()
+        h, kvh = heads
+        q, k, v = _attn_inputs(1, h, kvh, s, d, torch.bfloat16,
+                               seed=s + d + h, strided=strided)
+        before = ops.flash_attention_op.launches
+        with torch.no_grad():
+            out = ops.flash_attention_op(q, k, v, causal=causal)
+        assert ops.flash_attention_op.launches == before + 1
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        _assert_attn_close(out, ref)
+
+    def test_flash_attention_bf16_sq_differs_from_skv(self):
+        """Sq != Skv (the mask has no offset, as in the Pallas kernel)."""
+        _need_card()
+        q, _, _ = _attn_inputs(2, 14, 2, 200, 64, torch.bfloat16, seed=1)
+        _, k, v = _attn_inputs(2, 14, 2, 333, 64, torch.bfloat16, seed=2)
+        for causal in (True, False):
+            with torch.no_grad():
+                out = ops.flash_attention_op(q, k, v, causal=causal)
+            _assert_attn_close(out, flash_attention_plain(q, k, v,
+                                                          causal=causal))
+
+
+def _scatter_args(idx, q, s, w):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (idx, q, s, w)]
+
+
+@pytest.mark.cuda
+class TestScatterTilesOnCard:
+    """The tile-local scatter (count, scan, place, accumulate per output
+    tile of 4096 columns) against its plain version: ``torch.equal`` where
+    each sender's indices are distinct."""
+
+    @pytest.mark.parametrize("n", [1, 2, 3, 4])
+    @pytest.mark.parametrize("k,d", [(4097, 3 * 4096 + 5), (1, 4096),
+                                     (12_345, 100_003)])
+    def test_scatter_tiles_bitwise(self, n, k, d):
+        """K not a multiple of the tile, a ragged d_out, indices on tile
+        edges, slots past d_out and dropped ones."""
+        _need_card()
+        rng = np.random.default_rng(n * 7 + k)
+        edges = np.array([0, 4095, 4096, 8191, 8192, d - 1, d, d + 5,
+                          2 ** 31 - 1, -1, -7], np.int64)
+        rows = []
+        for _ in range(n):
+            pool = np.union1d(rng.choice(d + 10, size=min(k, d + 10),
+                                         replace=False), edges)
+            rows.append(rng.permutation(pool)[:k] if len(pool) >= k else
+                        np.concatenate([pool, -np.ones(k - len(pool),
+                                                       np.int64)]))
+        idx = np.stack(rows).astype(np.int32)
+        idx[rng.random(idx.shape) < 0.25] = -1
+        q = rng.integers(-127, 128, size=idx.shape).astype(np.int8)
+        s = rng.uniform(1e-3, 2.0, size=n).astype(np.float32)
+        w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+        args = _scatter_args(idx, q, s, w)
+        before = ops.scatter_aggregate_op.launches
+        ak, ssk = ops.scatter_aggregate_op(*args, d_out=d)
+        assert ops.scatter_aggregate_op.launches == before + 1
+        ap, ssp = scatter_aggregate_plain(*args, d_out=d)
+        torch.cuda.synchronize()
+        assert ak.shape == (d,) and torch.equal(ak, ap)
+        np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
+
+    def test_scatter_tiles_all_dropped_or_outside(self):
+        """No live slot: agg is all zeros, written once, and its norm 0."""
+        _need_card()
+        for fill in (-1, 10_000):
+            idx = np.full((3, 777), fill, np.int32)
+            q = np.ones((3, 777), np.int8)
+            args = _scatter_args(idx, q, np.ones(3, np.float32),
+                                 np.ones(3, np.float32))
+            agg, ssq = ops.scatter_aggregate_op(*args, d_out=9000)
+            torch.cuda.synchronize()
+            assert torch.equal(agg, torch.zeros(9000, device="cuda"))
+            assert float(ssq) == 0.0
+
+    @pytest.mark.parametrize("n,k,d", [(1, 5000, 64), (4, 3000, 4100)])
+    def test_scatter_tiles_duplicates_within_bound(self, n, k, d):
+        """One sender repeating columns: its adds meet in shared-memory
+        atomics in a varying order, within 2 m 2^-24 sum|v| per column."""
+        _need_card()
+        rng = np.random.default_rng(k)
+        idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+        q = rng.integers(-127, 128, size=(n, k)).astype(np.int8)
+        s = rng.uniform(1e-3, 2.0, size=n).astype(np.float32)
+        w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+        args = _scatter_args(idx, q, s, w)
+        ak, ssk = ops.scatter_aggregate_op(*args, d_out=d)
+        ap, ssp = scatter_aggregate_plain(*args, d_out=d)
+        v = np.abs(q.astype(np.float64) * (s * w)[:, None])
+        absum = np.bincount(idx.ravel(), v.ravel(), minlength=d)
+        m = np.bincount(idx.ravel(), minlength=d).max()
+        assert np.all(np.abs(ak.cpu().numpy() - ap.cpu().numpy())
+                      <= 2 * m * 2.0 ** -24 * absum)
+        np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
