@@ -66,9 +66,11 @@ toolkit.  Every line it prints is one JSON object:
    (both products on the bf16 tensor cores; the earlier bound with p.v
    at the f32 rate and the kernel's own four products beside it);
    checked, untimed, at D 32 f32, 32/32 heads, not causal, a ragged S of
-   4000, on [B, S, H, D] views, D 128 f32, D 32 and 128 in bf16 and S of
-   16 and 48.  Within atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in
-   bf16.
+   4000, on [B, S, H, D] views, D 128 f32, D 32 and 128 in bf16, S of 16
+   and 48, and D 96 (bf16 ragged and not causal, f32 ragged, S 48).
+   Within atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in bf16.  Timed
+   too, with SDPA and the bound: phi-3-vision's D 96 (32/32 heads, B 1,
+   S 4096) in bf16 and f32, and qwen2-7b's D 128 (28/4 heads, S 32768).
 11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
    f32 under the "pallas" impl, card against CPU: prefill logits and
    cache, 24 decode steps (teacher-forced, then greedy) with the
@@ -100,7 +102,28 @@ toolkit.  Every line it prints is one JSON object:
 17. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
    gloo processes sharing the card, reduced model, against the auto step;
    then the three tiers on that world.
-18. The ``{"kernels": [...]}`` summary (seven kernels), then
+18. ``reduced_family_parity``: the reduced qwen2-7b, phi-3-vision (with
+   patch embeddings) and granite-moe in f32, card against CPU: loss, aux
+   loss, the "pallas" prefill's logits and cache and 4 decode steps.
+19. ``scenario``: cell A's MLfabric-A under
+   ``scenarios.paper_dynamic_cluster(4, horizon=12)`` (a leave, an
+   aggregator outage, a congestion wave, a join) with a ``PhaseProfiler``:
+   commits in each window, the leaver's late commits, conservation of
+   updates, launches per update, the profiler's roofline bytes beside
+   ``dequant_aggregate``'s time.
+20. ``moe_train``: MLfabric-A on the full-width granite-moe-1b-a400m
+   (1.33 B parameters, an f32 router), 8 commits: the int8 wire on the
+   whole flat update, finite losses, aux losses above zero.
+21. ``moe_serve``: granite's 32k prefill at batch 1 under "pallas" (24
+   flash launches a prefill) against "blockwise" with the routing held
+   (``RouteHold``), 8 decode steps from it, and prefill against decode at
+   a drop-free capacity with the decode's routing held.
+22. ``vlm_serve``: phi-3-vision's 4096-position prefill (256 stub patch
+   embeddings and 3,840 tokens; flash at D 96, 32 launches) against
+   "blockwise", 8 decode steps from it.
+23. ``qwen2_7b_serve``: cell D's serve phase on qwen2-7b (28 flash launches
+   at D 128 a prefill; decode at pos 32767 at batch 16 on a 30.1 GB cache).
+24. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -867,21 +890,24 @@ def phase_reduced_parity():
           f"reduced slice: card and CPU losses differ by {max(diffs)}")
 
 
-def full_width_trainer(dev, callbacks=(), remat: bool = False):
-    """The main path's trainer: MLfabric-A over the full-width Qwen2-0.5B
-    in bf16 from the port's seeded init, ``compress=True``, by default
-    without the model's default ``remat``.  Returns the
-    trainer and a dict of what was set up (``drawn["n"]`` counts the batches
-    drawn, one per update computed)."""
+def full_width_trainer(dev, callbacks=(), remat: bool = False,
+                       arch: str = FULL_ARCH, scenario=None):
+    """The main path's trainer: MLfabric-A over the full-width ``arch``
+    (Qwen2-0.5B by default) in bf16 from the port's seeded init,
+    ``compress=True``, by default without the model's default ``remat``,
+    under ``scenario`` if one is given.  Returns the trainer and a dict of
+    what was set up (``drawn["n"]`` counts the batches drawn, one per
+    update computed; ``aux`` the aux loss of each update's forward)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import N_STATIC
     from repro_torch.data import SyntheticLM
+    from repro_torch.dist.flatbuf import padded_size
     from repro_torch.models import build_model
     from repro_torch.ps import AsyncTrainer
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(FULL_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg, dtype=torch.bfloat16, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -902,19 +928,27 @@ def full_width_trainer(dev, callbacks=(), remat: bool = False):
         with torch.no_grad():
             return model.loss_fn(p, eval_batch)[0]
 
+    flat_len = padded_size([p.numel() for p in tree_leaves(params)])
     setup = {"cfg": cfg, "model": model, "drawn": drawn, "init_s": init_s,
              "params": sum(p.numel() for p in tree_leaves(params)),
-             "loss_before": float(eval_fn(params)), "data_fn": data_fn}
+             "flat_len": flat_len, "aux": [],
+             "loss_before": float(eval_fn(params)), "data_fn": data_fn,
+             "eval_batch": eval_batch}
+
     # no remat by default: at seq 256 x batch 2 the activations are small
     # beside the params, and in eager PyTorch a recomputed forward costs its
     # host dispatch again on a path the host already bounds
-    loss_fn = functools.partial(model.loss_fn, remat=remat)
+    def loss_fn(p, batch):
+        out = model.loss_fn(p, batch, remat=remat)
+        setup["aux"].append(out[1]["aux_loss"].detach())
+        return out
+
     tr = AsyncTrainer(params, loss_fn, data_fn, n_workers=4, tau_max=8,
                       base_lr=0.1, gamma=0.0, delay_adaptive=False,
-                      update_size=4.0 * full_width_flat_len(),
+                      update_size=4.0 * flat_len,
                       bandwidth=N_STATIC, aggregators=2, eval_fn=eval_fn,
                       has_aux=True, seed=0, compress=True, device=dev,
-                      callbacks=callbacks)
+                      callbacks=callbacks, scenario=scenario)
     return tr, setup
 
 
@@ -1640,10 +1674,23 @@ SERVE_PARITY_PREFILL = 32          # a multiple of 16: the flash kernel's
 SERVE_PARITY_PROMPT, SERVE_PARITY_NEW = 16, 9      # 24 decode steps
 # two bf16 paths through 24 layers: twice the largest sound reading of
 # scripts/serve_tolerance.py over 6 seeds (3.9% / 5.4%), below what a
-# causal mask one key off (88% / 132%) and float8 q, k, v (16% / 24%) read
+# causal mask one key off (88% / 132%) and float8 q, k, v (16% / 24%) read;
+# qwen2-7b (28 layers) is inside the same rule: sound up to 4.0% / 5.1%,
+# float8 17.4% / 24.0%, the mask 85.6% / 126%
 BF16_PREFILL_TOL = 8e-2          # the 32k prefill, "pallas" vs "blockwise"
 BF16_CACHE_TOL = 2e-1            # the prefill vs the decode-built cache
 F32_REL_TOL = 1e-3               # two f32 paths through 24 layers
+# phi-3-vision-4.2b's own, by the same rule: its 4096-position prefill
+# with patch embeddings (32 layers, D 96) reads up to 4.9% sound, float8
+# 13.8%, the mask 32.4%
+VLM_PREFILL_TOL = 1e-1           # its prefill, "pallas" vs "blockwise"
+# granite-moe-1b-a400m's own bf16 limits, by the same rule (twice the
+# largest sound reading of scripts/serve_tolerance.py over 6 seeds, below
+# what a mask one key off and float8 q, k, v read), with the routing held
+# (RouteHold): sound up to 11.4% / 12.9%, float8 39.9% / 55.6%, the mask
+# 83.9% / 130%.  Free-running routing reads as much as those faults
+MOE_PREFILL_TOL = 2.3e-1         # its 32k prefill, "pallas" vs "blockwise"
+MOE_CACHE_TOL = 2.6e-1           # its prefill vs the decode-built cache
 
 
 def attn_work(b: int, h: int, kvh: int, s: int, d: int, causal: bool):
@@ -1672,6 +1719,22 @@ def attn_bound_f32_pv_ms(flops: float) -> float:
     units)."""
     return max(flops / BF16_TC_FLOPS, flops / F32_FLOPS) * 1e3
 
+
+# the timed shapes, bf16 and causal unless named: Qwen2-0.5B's 14/2 heads
+# of 64 at (B 2, S 4096) and at the prefill shape (B 1, S 32768; the
+# kernel line's row), phi-3-vision's head dim 96 (32/32 heads; its
+# 4096-position prefill) in both bodies and qwen2-7b's 28/4 heads of 128
+# at 32k.  (B, H, KVH, S, D, dtype, seed)
+FLASH_TIMED = {
+    "qwen2-0.5b B 2 S 4096": (2, ATTN_HEADS, ATTN_KV_HEADS, 4096, ATTN_D,
+                              "bfloat16", 4096),
+    "qwen2-0.5b prefill": (PREFILL_BATCH, ATTN_HEADS, ATTN_KV_HEADS, 32768,
+                           ATTN_D, "bfloat16", 32768),
+    "phi-3-vision D 96 bf16": (1, 32, 32, 4096, 96, "bfloat16", 4192),
+    "phi-3-vision D 96 f32": (1, 32, 32, 4096, 96, "float32", 4192),
+    "qwen2-7b D 128 bf16": (1, 28, 4, 32768, 128, "bfloat16", 32896),
+}
+FLASH_KERNEL_LINE = "qwen2-0.5b prefill"
 
 # the bf16 kernel's own tensor-core work: q.k^T once and p.v three times
 # (p split exactly into three bf16 terms, csrc/flash_attention.cu)
@@ -1709,13 +1772,13 @@ def sdpa_ms(q, k, v) -> float:
 
 
 def kernel_flash_attention(dev, rows) -> None:
-    """Timed at (B 2, S 4096) and at the prefill shape (B 1, S 32768),
-    Qwen2-0.5B's 14/2 heads of 64, bf16, causal; held against the plain
+    """Timed at the ``FLASH_TIMED`` shapes and held against the plain
     version there and, untimed, at D 32 f32, 32/32 heads (stablelm), not
     causal, a ragged S of 4000, [B, S, H, D] views, D 128 f32, D 32 and
-    128 in bf16 and S of 16 and 48.  ``library_ms`` is
+    128 in bf16, S of 16 and 48 and three D 96 cases.  ``library_ms`` is
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
-    ``bound_ms`` counts both products on the bf16 tensor cores."""
+    a bf16 row's ``bound_ms`` counts both products on the bf16 tensor
+    cores, an f32 row's at the f32 CUDA-core rate."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ops import flash_attention_op
@@ -1730,40 +1793,47 @@ def kernel_flash_attention(dev, rows) -> None:
         return out
 
     with torch.no_grad():
-        for b, s in ((2, 4096), (PREFILL_BATCH, 32768)):
+        for what, (b, h, kvh, s, d, dt, seed) in FLASH_TIMED.items():
             # transposed [B, S, H, D] views, as the prefill hands them over
-            q, k, v = inputs(b, ATTN_HEADS, ATTN_KV_HEADS, s, ATTN_D,
-                             torch.bfloat16, seed=s, strided=True)
+            dtype = getattr(torch, dt)
+            q, k, v = inputs(b, h, kvh, s, d, dtype, seed=seed, strided=True)
             out = flash_attention_op(q, k, v)
             ref = flash_attention_plain(q, k, v)
             torch.cuda.synchronize()
-            errs = attn_check(out, ref, f"B {b} S {s}")
+            errs = attn_check(out, ref, what)
             del out, ref
             ms = cuda_ms(lambda: flash_attention_op(q, k, v),
                          iters=3 if s > 4096 else 10, warmup=1)
             plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v),
                                iters=1, warmup=1)
             library_ms = sdpa_ms(q, k, v)
-            nbytes, flops = attn_work(b, ATTN_HEADS, ATTN_KV_HEADS, s,
-                                      ATTN_D, True)
-            bound, by = attn_bound(nbytes, flops)
+            nbytes, flops = attn_work(b, h, kvh, s, d, True)
+            if dtype == torch.float32:   # 4-byte elements, CUDA-core rate
+                nbytes *= 2
+                bound, by = (bound_ms(nbytes, 2 * flops),
+                             bound_by(nbytes, 2 * flops))
+                design = {}
+            else:
+                bound, by = attn_bound(nbytes, flops)
+                design = {
+                    "bound_f32_pv_ms": attn_bound_f32_pv_ms(flops),
+                    "design_products": ATTN_DESIGN_PRODUCTS,
+                    "design_tensor_core_ms":
+                        ATTN_DESIGN_PRODUCTS * flops / BF16_TC_FLOPS * 1e3,
+                    "bound_all_f32_ms": 2 * flops / F32_FLOPS * 1e3}
             row = dict(name="flash_attention", route="cuda",
                        source="src/repro_torch/csrc/flash_attention.cu",
                        replaces="src/repro/kernels/flash_attention.py:82",
                        **errs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=by, library_ms=library_ms)
-            emit({"phase": "kernel", "kernel": "flash_attention", "B": b,
-                  "H": ATTN_HEADS, "KVH": ATTN_KV_HEADS, "S": s, "D": ATTN_D,
-                  "dtype": "bfloat16", "causal": True, "layout": "BSHD views",
-                  **row, "flops": 2 * flops, "bytes": nbytes,
-                  "bound_share": bound / ms,
-                  "bound_f32_pv_ms": attn_bound_f32_pv_ms(flops),
-                  "design_products": ATTN_DESIGN_PRODUCTS,
-                  "design_tensor_core_ms":
-                      ATTN_DESIGN_PRODUCTS * flops / BF16_TC_FLOPS * 1e3,
-                  "bound_all_f32_ms": 2 * flops / F32_FLOPS * 1e3,
+            emit({"phase": "kernel", "kernel": "flash_attention",
+                  "case": what, "timed": True, "B": b, "H": h, "KVH": kvh,
+                  "S": s, "D": d, "dtype": dt, "causal": True,
+                  "layout": "BSHD views", **row, "flops": 2 * flops,
+                  "bytes": nbytes, "bound_share": bound / ms, **design,
                   "tflops": 2 * flops / ms / 1e9})
-            rows["flash_attention"] = row
+            if what == FLASH_KERNEL_LINE:
+                rows["flash_attention"] = row
             del q, k, v
         for what, (b, h, kvh, s, d, dtype, causal, strided) in {
                 "reduced D 32 f32": (2, 4, 2, 1024, 32, torch.float32, True,
@@ -1784,6 +1854,12 @@ def kernel_flash_attention(dev, rows) -> None:
                 "S 16": (1, 14, 2, 16, 64, torch.bfloat16, True, True),
                 "S 48 not causal": (1, 14, 2, 48, 64, torch.bfloat16, False,
                                     False),
+                "D 96 bf16 ragged S 1000 not causal": (
+                    1, 8, 2, 1000, 96, torch.bfloat16, False, True),
+                "D 96 f32 ragged S 4000": (1, 8, 2, 4000, 96, torch.float32,
+                                           True, False),
+                "D 96 bf16 S 48": (2, 4, 2, 48, 96, torch.bfloat16, True,
+                                   True),
         }.items():
             q, k, v = inputs(b, h, kvh, s, d, dtype, seed=s + h,
                              strided=strided)
@@ -1913,6 +1989,28 @@ def prefill_rel(logits, cache, logits_ref, cache_ref) -> dict:
                for k in ("k", "v")}}
 
 
+def cache_row_stats(cache, cache_ref, limit: float) -> dict:
+    """Per cache row (layer, batch row, position) of k and v: the largest
+    difference over the largest value of ``cache_ref`` (over the positions
+    ``cache`` holds); the share of rows above ``limit`` and the median and 99th
+    percentile of the rows' readings.  A sparse-expert model's bf16 paths
+    can route a token to other experts (a near tie in the router, or a
+    capacity slot taken by a token before it), which moves that token's
+    later rows as a whole: these say how many rows moved, where the
+    largest reading says only that one did."""
+    import torch
+    out = {}
+    for k in ("k", "v"):
+        a = cache["layers"][k].float()
+        b = cache_ref["layers"][k][:, :, :a.shape[2]].float()
+        rows = ((a - b).abs().amax(dim=(-2, -1))
+                / max(float(b.abs().max()), 1e-30)).flatten()
+        out[k] = {"rows_over": float((rows > limit).float().mean()),
+                  "q50": float(torch.quantile(rows, 0.5)),
+                  "q99": float(torch.quantile(rows, 0.99))}
+    return out
+
+
 def decode_built(model, params, prompts, max_len: int):
     """Teacher-forced decode of ``prompts`` from position 0 under
     "blockwise": (the logits at the last prompt position, the cache)."""
@@ -1925,11 +2023,13 @@ def decode_built(model, params, prompts, max_len: int):
     return logits, cache
 
 
-def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec) -> dict:
+def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec,
+                      row_limit: float = None) -> dict:
     """The "pallas" prefill of ``prompts`` against the logits and cache
     that ``decode_built`` gave for them: per layer, the largest difference
     of k and v over the prefill's largest value; the logits' difference;
-    the prefill's top-1 margins and the rows whose top-1 agree."""
+    the prefill's top-1 margins and the rows whose top-1 agree; with
+    ``row_limit``, ``cache_row_stats`` at that limit."""
     from repro_torch.models import attention
     attention.set_attention_impl("pallas")
     logits_pre, cache_pre = model.prefill(params, {"tokens": prompts})
@@ -1940,7 +2040,10 @@ def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec) -> dict:
                for i in range(cache_pre["layers"][k].shape[0])]
            for k in ("k", "v")}
     top2 = logits_pre.float().topk(2, dim=-1).values
-    return {"cache_rel_err_layer0": {k: v[0] for k, v in rel.items()},
+    rows = ({} if row_limit is None else
+            {"rows": cache_row_stats(cache_pre, cache_dec, row_limit)})
+    return {**rows,
+            "cache_rel_err_layer0": {k: v[0] for k, v in rel.items()},
             "cache_rel_err_max": {k: max(v) for k, v in rel.items()},
             "logits_rel_err": _bf16_rel(logits_dec, logits_pre),
             "logits_max_abs_err": float((logits_dec.float()
@@ -1951,18 +2054,21 @@ def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec) -> dict:
 
 
 def phase_serve():
-    """Serving the full-width Qwen2-0.5B in bf16 on one card.
+    """Cell D: ``serve_cell`` on the full-width Qwen2-0.5B, ``decode_32k``
+    at its batch of 128."""
+    from repro_torch.configs import SHAPES
+    return serve_cell(FULL_ARCH, "serve", SHAPES["decode_32k"].global_batch)
 
-    * prefill: ``build_step(cfg, prefill_32k)`` at seq 32768 with batch 1
-      (not 32: with the CUDA-core kernel a batch of 32 takes minutes),
-      under "pallas", 1 warm-up and ``PREFILL_TIMED`` timed, 24 flash
-      launches each; then the same prefill under the default "blockwise"
-      impl, logits and cache within ``BF16_PREFILL_TOL`` of the largest
-      value.
-    * decode: ``build_step(cfg, decode_32k)`` at batch 128 against a cache
-      of 32768 positions filled from a seeded generator, at pos 32767,
-      1 warm-up and ``DECODE_TIMED`` timed; bound: the cache and the params
-      read once at the memory rate.
+
+def serve_cell(arch: str, phase: str, decode_batch: int):
+    """Serving the full-width ``arch`` in bf16 on one card.
+
+    * prefill: ``prefill_cell`` at ``prefill_32k``'s seq 32768 with batch
+      1 (not 32: with the CUDA-core kernel a batch of 32 took minutes).
+    * decode: ``build_step(cfg, decode_32k)`` at ``decode_batch`` against
+      a cache of 32768 positions filled from a seeded generator, at pos
+      32767, 1 warm-up and ``DECODE_TIMED`` timed; bound: the cache and
+      the params read once at the memory rate.
     * serve: ``launch.serve.serve`` on ``SERVE_REQUESTS`` requests of
       ``SERVE_PROMPT`` tokens, batch ``SERVE_BATCH``, ``SERVE_NEW`` new
       tokens each.
@@ -1978,13 +2084,13 @@ def phase_serve():
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import build_step, make_host_mesh
     from repro_torch.launch.serve import Request, serve
-    from repro_torch.models import attention, build_model
+    from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda", 0)
-    cfg = get_config(FULL_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg, dtype=torch.bfloat16, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     param_bytes = sum(t.numel() * t.element_size()
@@ -1993,57 +2099,18 @@ def phase_serve():
     gen = torch.Generator(device=dev).manual_seed(5)
 
     # -- prefill ------------------------------------------------------------
-    shape = dataclasses.replace(SHAPES["prefill_32k"],
-                                global_batch=PREFILL_BATCH)
-    step = build_step(cfg, shape, mesh)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len),
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, SHAPES["prefill_32k"].seq_len),
                            generator=gen, device=dev, dtype=torch.int32)
-    attention.set_attention_impl("pallas")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_launches()
-    secs = []
-    for _ in range(1 + PREFILL_TIMED):
-        t0 = time.perf_counter()
-        logits, cache = step.fn(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    prefill_launches = ops_launches()
-    peak = torch.cuda.max_memory_allocated(dev)
-    attention.set_attention_impl("blockwise")
-    t0 = time.perf_counter()
-    logits_bw, cache_bw = step.fn(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    blockwise_s = time.perf_counter() - t0
-    s_prefill = sum(secs[1:]) / PREFILL_TIMED
-    rel = prefill_rel(logits, cache, logits_bw, cache_bw)
-    want = dict.fromkeys(KERNELS, 0)
-    want["flash_attention"] = cfg.n_layers * (1 + PREFILL_TIMED)
-    emit({"phase": "serve", "part": "prefill", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "dtype": "bfloat16", "impl": "pallas",
-          "seq_len": shape.seq_len, "batch": PREFILL_BATCH,
-          "warmup_s": secs[0], "prefill_s": secs[1:],
-          "s_per_prefill": s_prefill,
-          "prompt_tokens_per_s": PREFILL_BATCH * shape.seq_len / s_prefill,
-          "max_memory_allocated": peak, "launches": prefill_launches,
-          "blockwise_s": blockwise_s, "rel_err_vs_blockwise": rel,
-          "top1_equal_vs_blockwise": bool(torch.equal(
-              logits.argmax(-1), logits_bw.argmax(-1)))})
-    check(prefill_launches == want,
-          f"prefill launched {prefill_launches}, want {want}")
-    check(bool(torch.isfinite(logits).all()) and logits.shape
-          == (PREFILL_BATCH, cfg.padded_vocab), "prefill logits")
-    check(tuple(cache["layers"]["k"].shape) == (
-        cfg.n_layers, PREFILL_BATCH, shape.seq_len, cfg.n_kv_heads,
-        cfg.head_dim), "prefill cache shape")
-    check(all(r <= BF16_PREFILL_TOL for r in rel.values()),
-          f"pallas and blockwise prefill differ: {rel}")
-    del logits, cache, logits_bw, cache_bw, step, tokens
+    logits, cache, prefill_launches = prefill_cell(phase, cfg, model, params,
+                                                   {"tokens": tokens})
+    del logits, cache, tokens
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- decode at decode_32k ----------------------------------------------
-    shape = SHAPES["decode_32k"]
+    shape = dataclasses.replace(SHAPES["decode_32k"],
+                                global_batch=decode_batch)
     step = build_step(cfg, shape, mesh)
     cache = model.init_cache(shape.global_batch, shape.seq_len)
     for t in cache["layers"].values():
@@ -2066,7 +2133,7 @@ def phase_serve():
     peak = torch.cuda.max_memory_allocated(dev)
     ms_step = sum(secs[1:]) / DECODE_TIMED * 1e3
     decode_bound = (cache_bytes + param_bytes) / HBM_BYTES_PER_S * 1e3
-    emit({"phase": "serve", "part": "decode", "seq_len": shape.seq_len,
+    emit({"phase": phase, "part": "decode", "seq_len": shape.seq_len,
           "batch": shape.global_batch, "pos": pos, "cache_bytes": cache_bytes,
           "param_bytes": param_bytes, "warmup_ms": secs[0] * 1e3,
           "step_ms": [s * 1e3 for s in secs[1:]], "ms_per_step": ms_step,
@@ -2089,7 +2156,7 @@ def phase_serve():
     done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len)
     serve_launches = ops_launches()
     n_new = sum(len(r.output) for r in done)
-    emit({"phase": "serve", "part": "serve_loop", "requests": len(done),
+    emit({"phase": phase, "part": "serve_loop", "requests": len(done),
           "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
           "max_new": SERVE_NEW, "decode_steps": steps, "seconds": dt,
           "steps_per_s": steps / dt, "generated_tokens": n_new,
@@ -2110,7 +2177,7 @@ def phase_serve():
         r = prefill_vs_decode(m, p, prompts,
                               *decode_built(m, p, prompts, max_len))
         name = str(dtype).removeprefix("torch.")
-        emit({"phase": "serve", "part": "prefill_vs_decode", "dtype": name,
+        emit({"phase": phase, "part": "prefill_vs_decode", "dtype": name,
               "rows": SERVE_BATCH, "positions": SERVE_PROMPT, **r})
         limit = BF16_CACHE_TOL if dtype == torch.bfloat16 else F32_REL_TOL
         check(all(v <= limit for v in r["cache_rel_err_max"].values()),
@@ -2648,6 +2715,572 @@ def phase_reduced_ps_parity(seeds=PS_PARITY_SEEDS) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# slice 7: the paper's dynamic cluster, sparse experts, the vision prefix
+# and qwen2-7b
+# --------------------------------------------------------------------------- #
+# paper_dynamic_cluster(4, seed=0, horizon=12): worker3 leaves at 2 s, a
+# fresh worker joins at 6 s, worker1's aggregator role fails at 4 s and
+# worker0's and worker3's NICs dip to 1 Gb/s from 3 s for 4 s; cell A's
+# full-width update (a 494 MB int8 wire) commits before, between and after
+FAMILY_ARCHS = ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m")
+SCENARIO_HORIZON = 12.0
+MOE_ARCH, MOE_COMMITS = "granite-moe-1b-a400m", 8
+VLM_ARCH, VLM_SEQ = "phi-3-vision-4.2b", 4096
+DENSE_7B_ARCH, DENSE_7B_DECODE_BATCH = "qwen2-7b", 16
+AFTER_PREFILL_STEPS = 8
+FAMILY_PARITY_SEQ, FAMILY_PARITY_STEPS = 64, 4
+
+
+def _ties(launches: dict, updates: int, what: str) -> None:
+    """One quantize and one dequant_aggregate per update computed, nothing
+    else: the wire of every update, as ``phase_main_path`` holds it."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(quantize=updates, dequant_aggregate=updates)
+    check(launches == want, f"{what}: launches {launches} for {updates} "
+                            "updates computed")
+
+
+def phase_scenario(rows) -> dict:
+    """Cell H: MLfabric-A on the full-width Qwen2-0.5B under the paper's
+    dynamic cluster (``scenarios.paper_dynamic_cluster``), with a
+    ``PhaseProfiler`` attached, until ``SCENARIO_HORIZON`` simulated
+    seconds: one leave and one join, commits before the leave, between the
+    leave and the join and after it, the leaver committing nothing after it
+    left but the one update a worker may have in flight, every update
+    computed committed, dropped or still pending, finite losses, and one
+    quantize and one dequant_aggregate per update.  The profiler's roofline
+    model (``aggregator_hbm_traffic`` at n = 1 and the flat update's
+    length) is printed beside ``dequant_aggregate``'s measured time."""
+    import torch
+    from repro_torch.core.scenario import WorkerJoin, WorkerLeave
+    from repro_torch.obs import PhaseProfiler
+    from repro_torch.scenarios import paper_dynamic_cluster
+
+    dev = torch.device("cuda", 0)
+    scen = paper_dynamic_cluster(4, seed=0, horizon=SCENARIO_HORIZON)
+    leave = next(e for e in scen if isinstance(e, WorkerLeave))
+    join = next(e for e in scen if isinstance(e, WorkerJoin))
+    prof = PhaseProfiler()
+    tr, setup = full_width_trainer(dev, callbacks=[prof], scenario=scen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = tr.run(until_time=SCENARIO_HORIZON, until_commits=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops_launches()
+    sim = tr.sim.result
+    times = [c.time for c in sim.commits]
+    windows = {"before_leave": sum(t < leave.time for t in times),
+               "leave_to_join": sum(leave.time <= t < join.time
+                                    for t in times),
+               "after_join": sum(t >= join.time for t in times)}
+    late = [c.time for c in sim.commits
+            if c.worker == leave.worker and c.time > leave.time]
+    joined = sorted({c.worker for c in sim.commits} - {f"worker{i}"
+                                                       for i in range(4)})
+    pending = len(tr.sim._uid_meta)
+    computed = setup["drawn"]["n"]
+    summary = prof.summary(roofline_n=1, roofline_d=setup["flat_len"])
+    model_bytes = summary["roofline"]["fused_bytes"]
+    losses = [l for _, l in res.losses]
+    emit({"phase": "scenario", "scenario": scen.name, "arch": FULL_ARCH,
+          "horizon_s": SCENARIO_HORIZON,
+          "events": [(type(e).__name__, e.time) for e in scen],
+          "leaves": sim.leaves, "joins": sim.joins, "joined": joined,
+          "commits": res.commits, "drops": res.drops,
+          "updates_computed": computed, "pending": pending,
+          "commit_windows": windows, "leaver_commits_after_leave": late,
+          "delay_stats": res.delay_stats, "sim_time": res.sim_time,
+          "loss_before": setup["loss_before"], "eval_losses": losses,
+          "wall_s": wall, "wall_s_per_commit": wall / max(res.commits, 1),
+          "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+          "profiler": summary["metrics"],
+          "roofline_n1": summary["roofline"],
+          "roofline_fused_ms_at_hbm_rate":
+              model_bytes / HBM_BYTES_PER_S * 1e3,
+          "dequant_aggregate_ms": rows["dequant_aggregate"]["ms"]})
+    check(sim.leaves == 1 and sim.joins == 1,
+          f"scenario: {sim.leaves} leaves, {sim.joins} joins")
+    check(all(n > 0 for n in windows.values()),
+          f"scenario: a window without commits: {windows}")
+    check(len(late) <= 1, f"scenario: {leave.worker} committed {late} after "
+                          f"it left at {leave.time}")
+    check(joined != [], "scenario: the joined worker never committed")
+    check(computed == res.commits + res.drops + pending,
+          f"scenario: {computed} updates computed, {res.commits} committed, "
+          f"{res.drops} dropped, {pending} pending")
+    check(bool(losses) and all(math.isfinite(l) for l in losses),
+          f"scenario: eval losses {losses}")
+    check(summary["metrics"]["commits"] == res.commits,
+          "scenario: the profiler missed commits")
+    _ties(launches, computed, "scenario")
+    check(computed >= res.commits, "scenario: fewer updates than commits")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_train() -> dict:
+    """Cell I: MLfabric-A on the full-width granite-moe-1b-a400m (24
+    layers of 32 experts, top 8, an f32 router beside bf16 experts) with
+    cell A's settings, ``MOE_COMMITS`` commits: the int8 wire on the whole
+    flat update, one quantize and one dequant_aggregate per update; every
+    loss and aux loss finite and each aux loss above zero."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    tr, setup = full_width_trainer(dev, arch=MOE_ARCH)
+    model, cfg = setup["model"], setup["cfg"]
+    setup["aux"].clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = tr.run(until_commits=MOE_COMMITS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    computed = setup["drawn"]["n"]
+    aux = [float(a) for a in setup["aux"]]
+    with torch.no_grad():
+        total, m = model.loss_fn(tr.server.params, setup["eval_batch"])
+    losses = [l for _, l in res.losses]
+    emit({"phase": "moe_train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "params": setup["params"], "flat_len": setup["flat_len"],
+          "dtype": "bfloat16", "router_dtype": str(
+              tr.server.params["layers"]["mlp"]["router"].dtype),
+          "seq_len": SEQ_LEN, "batch": BATCH, "n_workers": 4,
+          "commits": res.commits, "drops": res.drops,
+          "updates_computed": computed, "delay_stats": res.delay_stats,
+          "loss_before": setup["loss_before"], "eval_losses": losses,
+          "update_aux_losses": aux, "final_loss": float(m["loss"]),
+          "final_aux_loss": float(m["aux_loss"]),
+          # the stack sums its layers' losses: balanced routing reads 1 a
+          # layer, all tokens on one expert n_experts
+          "aux_loss_per_layer": [a / cfg.n_layers
+                                 for a in aux + [float(m["aux_loss"])]],
+          "wall_s": wall,
+          "wall_s_per_commit": wall / max(res.commits, 1),
+          "launches": launches, "max_memory_allocated": peak})
+    check(res.commits >= MOE_COMMITS, f"moe_train: {res.commits} commits")
+    check(bool(losses) and all(math.isfinite(l) for l in losses)
+          and math.isfinite(float(total)), f"moe_train: losses {losses}")
+    check(len(aux) == computed and all(math.isfinite(a) and a > 0
+                                       for a in aux + [float(m["aux_loss"])]),
+          f"moe_train: aux losses {aux}")
+    _ties(launches, computed, "moe_train")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class RouteHold:
+    """Holds a sparse-expert model's routing fixed between two bf16 paths.
+
+    A bf16 path through 24 layers of 32 experts routes some tokens to other
+    experts than another bf16 path does: a near tie among the router's
+    probabilities, then the capacity slots of every later token of its
+    chunk; the changed tokens change the tokens that attend to them.  On
+    the full-width granite-moe (random weights) the sound 32k prefill
+    reads 102-130% off and moves 14-16% of its cache rows past
+    ``MOE_PREFILL_TOL``, near a causal mask one key off (103-113%, 18-20%;
+    ``scripts/serve_tolerance.py --free-routing``), so no limit on the
+    free-running comparison tells a fault from sound.
+    Inside ``with RouteHold() as hold``, ``hold.record()`` makes every call
+    of ``models.moe.router_topk`` keep its choice of experts, and
+    ``hold.replay(plan)`` makes the next run take the recorded choices
+    back, call by call, with the gates read from its own router
+    probabilities: the two paths then differ only continuously (attention,
+    rounding, the gates), as a dense model's do.  ``plan=None`` replays in
+    call order (another prefill); ``decode_plan(n_layers)`` turns the
+    one-token steps of ``decode_built`` into the prefill's per-layer
+    calls."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.topk = moe, moe.router_topk
+        self.calls, self.plan = [], None
+        moe.router_topk = self._router_topk
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.topk
+
+    def record(self) -> None:
+        self.calls, self.plan = [], None
+
+    def replay(self, plan=None) -> None:
+        self.plan = list(self.calls if plan is None else plan)
+
+    def decode_plan(self, n_layers: int) -> list:
+        """Per layer, the recorded one-token steps' choices side by side
+        along the sequence: what a prefill of those positions calls."""
+        import torch
+        steps = len(self.calls) // n_layers
+        return [torch.cat([self.calls[t * n_layers + layer]
+                           for t in range(steps)], dim=1)
+                for layer in range(n_layers)]
+
+    def _router_topk(self, probs, k):
+        if self.plan is None:
+            vals, idx = self.topk(probs, k)
+            self.calls.append(idx)
+            return vals, idx
+        idx = self.plan.pop(0)
+        check(tuple(idx.shape) == tuple(probs.shape[:-1]) + (k,),
+              f"route hold: replayed {tuple(idx.shape)} for "
+              f"{tuple(probs.shape)}")
+        return probs.gather(-1, idx), idx
+
+
+def prefill_limit(cfg) -> float:
+    """The bf16 limit of ``cfg``'s serving prefill, "pallas" against
+    "blockwise"."""
+    if cfg.moe is not None:
+        return MOE_PREFILL_TOL
+    return VLM_PREFILL_TOL if cfg.frontend == "vision" else BF16_PREFILL_TOL
+
+
+def routing_drops(calls, moe) -> dict:
+    """How much a sparse-expert prefill dropped, from the routing that
+    ``RouteHold`` recorded (one ``[G, T, K]`` tensor of expert indices a
+    layer, each of the G rows a dispatch group with ``capacity(T)`` slots
+    an expert), the slots claimed in ``_dispatch_chunk``'s priority order:
+    per layer the share of (token, choice) pairs whose expert was full,
+    and the largest share of tokens that lost every choice."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import capacity
+    shares, lost_all = [], 0.0
+    for idx in calls:
+        g, t, k = idx.shape
+        cap = capacity(t, moe)
+        counts = torch.zeros((g, moe.n_experts), dtype=torch.int64,
+                             device=idx.device)
+        kept = torch.zeros((g, t), dtype=torch.int64, device=idx.device)
+        for c in range(k):
+            onehot = F.one_hot(idx[..., c], moe.n_experts)
+            pos = (torch.cumsum(onehot, 1) - 1 + counts[:, None]).gather(
+                -1, idx[..., c, None])[..., 0]
+            kept += pos < cap
+            counts += onehot.sum(1)
+        shares.append(1.0 - float(kept.sum()) / (g * t * k))
+        lost_all = max(lost_all, float((kept == 0).float().mean()))
+    return {"dropped_choice_share": shares,
+            "dropped_choice_share_mean": sum(shares) / max(len(shares), 1),
+            "tokens_lost_every_choice_max": lost_all}
+
+
+def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
+    """A prefill of ``batch`` through ``build_step`` under "pallas": 1
+    warm-up and ``PREFILL_TIMED`` timed, one flash launch a layer each and
+    nothing else; then under "blockwise", logits and cache within
+    ``prefill_limit`` of the largest value.  For a config with experts
+    the "blockwise" run records its routing and one more "pallas" prefill
+    replays it (``RouteHold``): that pair is checked, within
+    ``MOE_PREFILL_TOL``, and the timed prefill's free-running difference is
+    printed beside it, with the share of choices the "blockwise" run
+    dropped (``routing_drops``).  Returns the "pallas" logits and cache and the
+    launches."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.models import attention
+
+    dev = model.device
+    b, n = batch["tokens"].shape
+    seq = n + (batch["frontend_embeds"].shape[1]
+               if "frontend_embeds" in batch else 0)
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=seq,
+                                global_batch=b)
+    step = build_step(cfg, shape, make_host_mesh(device=dev))
+    attention.set_attention_impl("pallas")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    secs = []
+    for _ in range(1 + PREFILL_TIMED):
+        t0 = time.perf_counter()
+        logits, cache = step.fn(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = ops_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = {}
+    with RouteHold() as hold:
+        attention.set_attention_impl("blockwise")
+        t0 = time.perf_counter()
+        logits_bw, cache_bw = step.fn(params, batch)
+        torch.cuda.synchronize()
+        blockwise_s = time.perf_counter() - t0
+        rel = prefill_rel(logits, cache, logits_bw, cache_bw)
+        if cfg.moe is not None:
+            held["drops_blockwise"] = routing_drops(hold.calls, cfg.moe)
+            held["rel_err_free_routing"] = rel
+            held["rows_free_routing"] = cache_row_stats(
+                cache, cache_bw, MOE_PREFILL_TOL)
+            attention.set_attention_impl("pallas")
+            hold.replay()
+            rel = prefill_rel(*step.fn(params, batch), logits_bw, cache_bw)
+            held["routing_held_calls"] = len(hold.calls)
+            attention.set_attention_impl("blockwise")
+    s_prefill = sum(secs[1:]) / PREFILL_TIMED
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = cfg.n_layers * (1 + PREFILL_TIMED)
+    emit({"phase": phase, "part": "prefill", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.head_dim, "dtype": "bfloat16", "impl": "pallas",
+          "seq_len": seq, "text_tokens": n, "batch": b,
+          "warmup_s": secs[0], "prefill_s": secs[1:],
+          "s_per_prefill": s_prefill,
+          "prompt_tokens_per_s": b * seq / s_prefill,
+          "max_memory_allocated": peak, "launches": launches,
+          "blockwise_s": blockwise_s, "rel_err_vs_blockwise": rel,
+          **held, "top1_equal_vs_blockwise": bool(torch.equal(
+              logits.argmax(-1), logits_bw.argmax(-1)))})
+    check(launches == want, f"{phase}: prefill launched {launches}, want "
+                            f"{want}")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (b, cfg.padded_vocab), f"{phase}: logits")
+    check(tuple(cache["layers"]["k"].shape) == (
+        cfg.n_layers, b, seq, cfg.n_kv_heads, cfg.head_dim),
+        f"{phase}: cache shape")
+    limit = prefill_limit(cfg)
+    check(all(r <= limit for r in rel.values()),
+          f"{phase}: pallas and blockwise prefill differ: {rel}")
+    del logits_bw, cache_bw
+    return logits, cache, launches
+
+
+def decode_after_prefill(phase: str, model, params, logits, cache,
+                         steps: int) -> list:
+    """``steps`` greedy decode steps that continue a prefill: its cache
+    copied into one of ``steps`` more positions.  Returns the tokens."""
+    import torch
+    n_layers, b, seq = cache["layers"]["k"].shape[:3]
+    dec = model.init_cache(b, seq + steps)
+    for k, t in cache["layers"].items():
+        dec["layers"][k][:, :, :seq].copy_(t)
+    tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+    launches0 = ops_launches()
+    secs, toks = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, dec = model.decode_step(params, dec, tok, seq + i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()), f"{phase}: decode logits")
+        tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+        toks.append(tok[:, 0].tolist())
+    emit({"phase": phase, "part": "decode_after_prefill", "batch": b,
+          "from_pos": seq, "steps": steps, "step_ms": [x * 1e3 for x in secs],
+          "ms_per_step": sum(secs[1:]) / (steps - 1) * 1e3, "tokens": toks})
+    check(ops_launches() == launches0, f"{phase}: decode launched kernels")
+    return toks
+
+
+def phase_moe_serve() -> dict:
+    """Cell J: the full-width granite-moe-1b-a400m in bf16: a 32k prefill
+    at batch 1 under "pallas" (flash at D 64, 16/8 heads, 24 launches a
+    prefill; the experts' dispatch over 128 chunks of 256) against
+    "blockwise" with the routing held (``RouteHold``; within
+    ``MOE_PREFILL_TOL``), then ``AFTER_PREFILL_STEPS`` decode steps from
+    it.  Prefill against teacher-forced decode runs at a drop-free capacity
+    factor (the experts' count: a 256-token chunk, capacity 80, and a
+    one-token step, capacity 1, drop other tokens by design) with the
+    decode's routing held in the prefill (bf16 within ``MOE_CACHE_TOL``,
+    f32 within ``F32_REL_TOL``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, 32768),
+                           generator=gen, device=dev, dtype=torch.int32)
+    logits, cache, launches = prefill_cell("moe_serve", cfg, model, params,
+                                           {"tokens": tokens})
+    decode_after_prefill("moe_serve", model, params, logits, cache,
+                         AFTER_PREFILL_STEPS)
+    del logits, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    ).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        m = build_model(free, dtype=dtype, device=dev)
+        p = tree_map(lambda t: t if t.dtype == torch.float32 else t.to(dtype),
+                     params)
+        limit = MOE_CACHE_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+        with RouteHold() as hold:
+            dec = decode_built(m, p, prompts, SERVE_PROMPT + SERVE_NEW)
+            hold.replay(hold.decode_plan(cfg.n_layers))
+            r = prefill_vs_decode(m, p, prompts, *dec, row_limit=limit)
+        name = str(dtype).removeprefix("torch.")
+        emit({"phase": "moe_serve", "part": "prefill_vs_decode",
+              "dtype": name, "capacity_factor": free.moe.capacity_factor,
+              "routing": "held", "rows": SERVE_BATCH,
+              "positions": SERVE_PROMPT, **r})
+        check(all(v <= limit for v in r["cache_rel_err_max"].values()),
+              f"moe_serve {name}: prefill and decode caches differ: {r}")
+        if dtype == torch.float32:
+            check(r["logits_rel_err"] <= F32_REL_TOL,
+                  "moe_serve: f32 prefill and decode logits differ")
+            check(r["top1_equal_rows"] >= SERVE_BATCH - 1,
+                  f"moe_serve: prefill and decode top-1 agree on "
+                  f"{r['top1_equal_rows']} of {SERVE_BATCH} rows")
+        del m, p
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vlm_serve() -> dict:
+    """Cell K: the full-width phi-3-vision-4.2b backbone in bf16: a
+    ``VLM_SEQ``-position prefill at batch 1 of 256 seeded stub patch
+    embeddings and 3,840 text tokens under "pallas" (flash at D 96, 32/32
+    heads, 32 launches a prefill) against "blockwise", then
+    ``AFTER_PREFILL_STEPS`` decode steps from it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, text_len
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (PREFILL_BATCH, text_len(cfg, VLM_SEQ)),
+        generator=gen, device=dev, dtype=torch.int32),
+        "frontend_embeds": torch.randn(
+            (PREFILL_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+            generator=gen, device=dev).to(torch.bfloat16)}
+    logits, cache, launches = prefill_cell("vlm_serve", cfg, model, params,
+                                           batch)
+    decode_after_prefill("vlm_serve", model, params, logits, cache,
+                         AFTER_PREFILL_STEPS)
+    del logits, cache, batch, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_qwen2_7b_serve() -> dict:
+    """Cell L: ``serve_cell`` on the full-width qwen2-7b: the 32k prefill
+    (flash at D 128, 28/4 heads, 28 launches), decode at pos 32767 at
+    batch ``DENSE_7B_DECODE_BATCH`` (a 30.1 GB bf16 cache beside 15.2 GB of
+    weights; cell D's batch of 128 would need 240 GB), the serve loop and
+    prefill against decode in bf16 and f32."""
+    return serve_cell(DENSE_7B_ARCH, "qwen2_7b_serve",
+                      DENSE_7B_DECODE_BATCH)
+
+
+def _family_run(arch: str, device: str, init_np):
+    """Reduced ``arch`` in f32: loss and aux loss under "blockwise" (the
+    training impl), a prefill under "pallas" and ``FAMILY_PARITY_STEPS``
+    teacher-forced decode steps, from the same params and seeded inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_torch
+    from repro_torch.models import attention, build_model, text_len
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, dtype=torch.float32, device=device)
+    params = to_torch(init_np, dtype=torch.float32, device=device)
+    rng = np.random.default_rng(11)
+    n = text_len(cfg, FAMILY_PARITY_SEQ)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (2, n)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab_size, (2, n)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        b["frontend_embeds"] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    with torch.no_grad():
+        total, m = model.loss_fn(params, b)
+    attention.set_attention_impl("pallas")
+    try:
+        logits, cache = model.prefill(
+            params, {k: v for k, v in b.items() if k != "labels"})
+    finally:
+        attention.set_attention_impl("blockwise")
+    dec = model.init_cache(2, FAMILY_PARITY_STEPS)
+    steps = []
+    for pos in range(FAMILY_PARITY_STEPS):
+        lg, dec = model.decode_step(params, dec,
+                                    b["tokens"][:, pos:pos + 1], pos)
+        steps.append(lg.cpu())
+    return {"total": float(total), "loss": float(m["loss"]),
+            "aux_loss": float(m["aux_loss"]), "logits": logits.cpu(),
+            "cache_k": cache["layers"]["k"].cpu(),
+            "decode": torch.stack(steps)}
+
+
+def phase_reduced_family_parity() -> None:
+    """The reduced qwen2-7b, phi-3-vision (with patch embeddings) and
+    granite-moe in f32, card against CPU from the same params: loss and aux
+    loss within rtol 1e-4, prefill logits and cache and 4 decode steps'
+    logits within atol 1e-4 / rtol 1e-4 (f32 sums in other orders, as
+    ``reduced_serve_parity``); the card's prefill launches the flash kernel
+    once a layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        init = to_numpy(build_model(cfg, dtype=torch.float32, device="cpu")
+                        .init(torch.Generator().manual_seed(0)))
+        before = ops.flash_attention_op.launches
+        card = _family_run(arch, "cuda", init)
+        check(ops.flash_attention_op.launches == before + cfg.n_layers,
+              f"{arch}: the card's prefill did not launch the flash kernel "
+              "once a layer")
+        cpu = _family_run(arch, "cpu", init)
+        errs = {k: abs(card[k] - cpu[k]) for k in ("total", "loss",
+                                                   "aux_loss")}
+        for k in ("logits", "cache_k", "decode"):
+            errs[k] = float((card[k] - cpu[k]).abs().max())
+        emit({"phase": "reduced_family_parity", "arch": arch,
+              "moe": cfg.moe is not None, "frontend": cfg.frontend,
+              "loss_card": card["loss"], "aux_loss_card": card["aux_loss"],
+              "max_abs_err": errs})
+        for k in ("total", "loss", "aux_loss"):
+            check(errs[k] <= 1e-4 * abs(cpu[k]) + 1e-6,
+                  f"{arch} {k}: card {card[k]} vs CPU {cpu[k]}")
+        for k in ("logits", "cache_k", "decode"):
+            check(torch.allclose(card[k], cpu[k], rtol=1e-4, atol=1e-4),
+                  f"{arch} {k}: card and CPU differ by {errs[k]}")
+        check((card["aux_loss"] > 0) == (cfg.moe is not None),
+              f"{arch}: aux loss {card['aux_loss']}")
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2676,6 +3309,12 @@ def main() -> int:
     elastic_launches = phase_elastic()
     phase_reduced_ps_parity()
     phase_mlfabric_ranks()
+    phase_reduced_family_parity()
+    scenario_launches = phase_scenario(rows)
+    moe_train_launches = phase_moe_train()
+    moe_serve_launches = phase_moe_serve()
+    vlm_launches = phase_vlm_serve()
+    dense_7b_launches = phase_qwen2_7b_serve()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2683,7 +3322,10 @@ def main() -> int:
     by_path = {"main_path": launches, "mlfabric_step": step_launches,
                "tiers": tier_launches_, "serve": serve_launches,
                "unfused_receive": unfused_launches, "train": train_launches,
-               "pod_async": pod_launches, "elastic": elastic_launches}
+               "pod_async": pod_launches, "elastic": elastic_launches,
+               "scenario": scenario_launches, "moe_train": moe_train_launches,
+               "moe_serve": moe_serve_launches, "vlm_serve": vlm_launches,
+               "qwen2_7b_serve": dense_7b_launches}
     total = {k: sum(p.get(k, 0) for p in by_path.values()) for k in KERNELS}
     for k, n in total.items():
         check(n > 0, f"{k} was not launched on the main paths")

@@ -71,7 +71,8 @@ def summary(root: str, lines: list) -> dict:
     out = {"checkout": root}
     for r in lines:
         if r.get("kernel") == "flash_attention" and "ms" in r:
-            out[f"flash_ms_B{r['B']}_S{r['S']}"] = r["ms"]
+            out[f"flash_ms_B{r['B']}_S{r['S']}_D{r['D']}_"
+                f"{r.get('dtype', 'bfloat16')}"] = r["ms"]
         if r.get("kernel") == "scatter_aggregate" and "ms" in r:
             out[f"scatter_ms_N{r['N']}"] = r["ms"]
         if r.get("phase") == "mlfabric_step" and "s_per_step" in r:

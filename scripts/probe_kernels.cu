@@ -342,6 +342,7 @@ extern "C" int probe_layout(int d, const void* q, const void* k,
   switch (d) {
     case 32: return run_layout<32>(q, k, p, v, s_out, o_out);
     case 64: return run_layout<64>(q, k, p, v, s_out, o_out);
+    case 96: return run_layout<96>(q, k, p, v, s_out, o_out);
     case 128: return run_layout<128>(q, k, p, v, s_out, o_out);
   }
   return -1;
@@ -357,8 +358,9 @@ extern "C" int probe_accumulate(const void* p, const void* v, void* out,
   return cudaDeviceSynchronize();
 }
 
-// D 64 bf16 attention by a variant: 2 or 3 = split_kernel with that many
-// terms of p; 11 .. 14 = the kernel itself cut for 1 .. 4 CTAs an SM.
+// bf16 attention by a variant: 2 or 3 = split_kernel at D 64 with that many
+// terms of p; 11 .. 14 = the D 64 kernel cut for 1 .. 4 CTAs an SM; 21 .. 23
+// = the D 96 kernel cut for 1 .. 3 CTAs an SM.
 // shape and strides as repro_flash_attention takes them; default stream.
 extern "C" int probe_variant(int variant, const void* q, const void* k,
                              const void* v, void* o, const int64_t* shape,
@@ -394,6 +396,31 @@ extern "C" int probe_variant(int variant, const void* q, const void* k,
     case 14:
       return launch<64, 4>(q, k, v, o, st, bh, hh, g, sq, skv, scale, causal,
                            0);
+    case 21:
+      return launch<96, 1>(q, k, v, o, st, bh, hh, g, sq, skv, scale, causal,
+                           0);
+    case 22:
+      return launch<96, 2>(q, k, v, o, st, bh, hh, g, sq, skv, scale, causal,
+                           0);
+    case 23:
+      return launch<96, 3>(q, k, v, o, st, bh, hh, g, sq, skv, scale, causal,
+                           0);
   }
   return -1;
+}
+
+// Registers a thread and local (spill) bytes of a D 96 variant (21 .. 23):
+// regs[0], regs[1]; returns the CUDA error of the query.
+extern "C" int probe_d96_regs(int variant, int* regs) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (variant) {
+    case 21: e = cudaFuncGetAttributes(&a, flash_kernel_wgmma<96, 1>); break;
+    case 22: e = cudaFuncGetAttributes(&a, flash_kernel_wgmma<96, 2>); break;
+    case 23: e = cudaFuncGetAttributes(&a, flash_kernel_wgmma<96, 3>); break;
+  }
+  if (e) return e;
+  regs[0] = a.numRegs;
+  regs[1] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }

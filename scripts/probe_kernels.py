@@ -7,8 +7,8 @@ source) and prints one JSON line per reading:
 
 * ``sass``: the HGMMA, LDGSTS and UTMALDG instructions in the built flash
   library (``cuobjdump -sass``).
-* ``layout``: the bf16 body's ``wgmma`` pieces alone at D 32/64/128, q.k^T
-  and p.v (p split in three bf16 terms) against f64.
+* ``layout``: the bf16 body's ``wgmma`` pieces alone at D 32/64/96/128,
+  q.k^T and p.v (p split in three bf16 terms) against f64.
 * ``accumulate``: one tile's p.v summed 1, 64 and 512 times, through the
   tensor cores' accumulator (mode 0) and as a fresh accumulator a tile
   added on the CUDA cores (mode 1): error against f64, signed mean and
@@ -18,13 +18,19 @@ source) and prints one JSON line per reading:
   rule (|out - ref| <= 1e-6 + 2^-7 |ref|) and timed on the first: the
   kernel itself, the body with p split in 2 or 3 terms, and the kernel
   with its registers cut for 1 to 4 CTAs an SM.
+* ``d96_blocks``: the D 96 body (phi-3-vision's 32/32 heads, B 1, S 4096,
+  causal, [B, S, H, D] views) with its registers cut for 1, 2 and 3 CTAs
+  an SM: registers a thread, spilled bytes, three seeds held to
+  ``attn_check``'s rule, and the time on the first.
 * ``scatter``: ``scatter_aggregate`` on the random top-k of ``chip_smoke.py``
   and on the top-k of gradient-like buckets (nonzero on 512 rows of 896,
   so the tied zeros come as one run of columns), N = 1 and 4, against the
   plain version; with ``--first-scatter`` also the first version built from
   that source (its C interface: six pointers, n, k, d_out, stream).
 
-Needs a CUDA card and nvcc; imports neither JAX nor the JAX package.
+``--probes layout,d96_blocks`` runs a subset (default: all, in the order
+above).  Needs a CUDA card and nvcc; imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+PROBES = ("sass", "layout", "accumulate", "flash_variant", "d96_blocks",
+          "scatter")
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
@@ -74,7 +82,7 @@ def attn_rule(out, ref) -> dict:
 def probe_layout(lib) -> None:
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
-    for d in (32, 64, 128):
+    for d in (32, 64, 96, 128):
         q, k, v = (torch.randn(64, d, generator=g, device="cuda").bfloat16()
                    for _ in range(3))
         p = torch.rand(64, 64, generator=g, device="cuda")
@@ -155,6 +163,43 @@ def probe_flash_variants(lib) -> None:
                 emit(rec)
 
 
+def probe_d96_blocks(lib) -> None:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    b, h, s, d = 1, 32, 4096, 96
+    seeds = (s, s + 1, s + 2)
+    with torch.no_grad():
+        refs = {seed: flash_attention_plain(*attn_inputs(b, h, h, s, d, seed))
+                for seed in seeds}
+        for ctas, var in ((1, 21), (2, 22), (3, 23)):
+            regs = (ctypes.c_int * 2)()
+            rc = lib.probe_d96_regs(var, regs)
+            rec = {"probe": "d96_blocks", "ctas_per_sm": ctas, "rc": rc,
+                   "registers": regs[0], "spill_bytes": regs[1]}
+            for seed in seeds:
+                q, k, v = attn_inputs(b, h, h, s, d, seed)
+                out = torch.empty_like(q)
+                shape = (ctypes.c_int64 * 6)(b, h, h, s, s, d)
+                strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(),
+                                                *v.stride(), *out.stride())
+
+                def call():
+                    err = lib.probe_variant(var, q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr(), out.data_ptr(),
+                                            ctypes.addressof(shape),
+                                            ctypes.addressof(strides),
+                                            d ** -0.5, 1)
+                    if err:
+                        raise RuntimeError(f"variant {var}: cudaError {err}")
+                    return out
+                rec[f"seed {seed}"] = attn_rule(call(), refs[seed])
+                if seed == s:
+                    rec["ms"] = cs.cuda_ms(call, iters=20, warmup=2)
+            emit(rec)
+
+
 def sparse_chunks(gen, n, k, d, kind):
     import torch
     from repro_torch.dist.flatbuf import topk_sparsify
@@ -231,7 +276,13 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--first-scatter", type=Path, default=None,
                     help="scatter_aggregate.cu of the first version")
+    ap.add_argument("--probes", default=",".join(PROBES),
+                    help="comma-separated subset of " + ", ".join(PROBES))
     args = ap.parse_args(argv)
+    probes = args.probes.split(",")
+    unknown = set(probes) - set(PROBES)
+    if unknown:
+        ap.error(f"unknown probes {sorted(unknown)}")
     import torch
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -248,16 +299,20 @@ def main(argv) -> int:
         [ctypes.c_int] * 2
     lib.probe_variant.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
         [ctypes.c_float, ctypes.c_int]
+    lib.probe_d96_regs.argtypes = [ctypes.c_int, ctypes.c_void_p]
     first = None
     if args.first_scatter is not None:
         first = nvcc_lib(args.first_scatter, "first_scatter")
         first.repro_scatter_aggregate.argtypes = [ctypes.c_void_p] * 6 + \
             [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    probe_sass()
-    probe_layout(lib)
-    probe_accumulate(lib)
-    probe_flash_variants(lib)
-    probe_scatter(first)
+    run = {"sass": probe_sass, "layout": lambda: probe_layout(lib),
+           "accumulate": lambda: probe_accumulate(lib),
+           "flash_variant": lambda: probe_flash_variants(lib),
+           "d96_blocks": lambda: probe_d96_blocks(lib),
+           "scatter": lambda: probe_scatter(first)}
+    for name in PROBES:
+        if name in probes:
+            run[name]()
     return 0
 
 

@@ -294,4 +294,5 @@ def list_configs() -> Sequence[str]:
 
 def _load_all() -> None:
     # import side-effect registers each architecture the port carries so far
-    from . import minicpm_2b, qwen2_0_5b, stablelm_1_6b  # noqa
+    from . import (granite_moe_1b_a400m, minicpm_2b,  # noqa
+                   phi_3_vision_4_2b, qwen2_0_5b, qwen2_7b, stablelm_1_6b)

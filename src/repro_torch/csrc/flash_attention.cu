@@ -332,6 +332,9 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_simt<T, 64>(q, k, v, o, st, bh, h_q, group, sq, skv,
                                 scale, causal, stream);
+    case 96:
+      return launch_simt<T, 96>(q, k, v, o, st, bh, h_q, group, sq, skv,
+                                scale, causal, stream);
     case 128:
       return launch_simt<T, 128>(q, k, v, o, st, bh, h_q, group, sq, skv,
                                  scale, causal, stream);
@@ -417,6 +420,39 @@ struct Wgmma<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  // d (+)= A . B, A from registers (four 32-bit words of bf16 pairs), B
+  // N-major from shared memory (transpose bit set)
+  __device__ __forceinline__ static void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47}"
+        ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
         : "memory");
   }
@@ -709,10 +745,14 @@ flash_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // CTAs an SM the registers are cut for: at D 64 three fit without spills
 // (166 registers), which takes a 32k prefill's call from 14.4 to 12.9 ms
 // on an H100 against the compiler's own choice (194 registers, fewer
-// CTAs; scripts/probe_kernels.py)
+// CTAs; scripts/probe_kernels.py).  At D 96 three too: 168 registers and
+// 8 bytes spilled, 0.702 ms for phi-3-vision's 32/32 heads at B 1 S 4096,
+// against 0.743 ms for two (215 registers) and 0.754 for one
+// (scripts/probe_kernels.py d96_blocks); 61,440 bytes of shared memory a
+// CTA
 template <int D>
 constexpr int min_blocks() {
-  return D == 32 ? 4 : D == 64 ? 3 : 1;
+  return D == 32 ? 4 : D == 64 || D == 96 ? 3 : 1;
 }
 
 template <int D, int kMinBlocks = min_blocks<D>()>
@@ -744,6 +784,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
                         causal, stream);
+    case 96:
+      return launch<96>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
+                        causal, stream);
     case 128:
       return launch<128>(q, k, v, o, st, bh, h_q, group, sq, skv, scale,
                          causal, stream);
@@ -758,7 +801,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: device pointers, 16-byte aligned, f32 (dtype 0, the CUDA-core
 // kernel) or bf16 (dtype 1, the wgmma kernel); shape = {B, H, KVH, Sq, Skv,
-// D} with D in {32, 64, 128} and H % KVH == 0; strides: 16 int64 in
+// D} with D in {32, 64, 96, 128} and H % KVH == 0; strides: 16 int64 in
 // elements (q, k, v, o, each batch, head, seq, dim), dim strides 1 and the
 // others multiples of 16 bytes.  Launches on `stream` and returns the CUDA
 // error of the launch (0 when it was accepted).

@@ -1,15 +1,25 @@
-"""Phase-aware policy of the bounded-loss transport tier (DESIGN.md §12).
+"""Phase-aware policy of the bounded-loss transport tier (DESIGN.md §12),
+and the activation-layout hook the model code calls.
 
 ``PhaseLossPolicy`` and ``PhaseLossCallback`` are copied from
-``repro/dist/policy.py``, which imports JAX at the top.  That module's
-``sharding_policy`` context and ``constrain`` hook, which the model forward
-passes call for tensor parallelism, come with the sharding slice (ROADMAP
-A15).
+``repro/dist/policy.py``, which imports JAX at the top.  ``constrain`` is
+that module's hook as it behaves with no sharding policy bound: the
+identity.  The policy itself (``sharding_policy``, the name-keyed layouts
+and a ``constrain`` that applies them) comes with the sharding slice
+(ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
 
-__all__ = ["PhaseLossCallback", "PhaseLossPolicy"]
+import torch
+
+__all__ = ["PhaseLossCallback", "PhaseLossPolicy", "constrain"]
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The layout hint for activation ``name``: ``x`` itself, as the
+    reference's ``constrain`` returns it when no policy is bound."""
+    return x
 
 
 class PhaseLossPolicy:

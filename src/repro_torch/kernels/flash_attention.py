@@ -37,7 +37,7 @@ import torch
 from .build import check_launch, load
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,7 +113,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """The CUDA kernel.  q, k, v: f32 (the CUDA-core body) or bf16 (the
-    tensor-core body), all one type, on one card, D in {32, 64, 128}, any
+    tensor-core body), all one type, on one card, D in {32, 64, 96, 128}, any
     strides with a unit last stride and 16-byte steps (so transposed views
     of [B, S, H, D] tensors go in as they are) -> [B, H, Sq, D] of q's
     dtype, laid out as q is.  ``block_q`` and ``block_k`` are accepted and

@@ -1,3 +1,3 @@
-from .api import Model, build_model, value_and_grad
+from .api import Model, build_model, text_len, value_and_grad
 
-__all__ = ["Model", "build_model", "value_and_grad"]
+__all__ = ["Model", "build_model", "text_len", "value_and_grad"]

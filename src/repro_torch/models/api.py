@@ -47,6 +47,13 @@ def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
     )
 
 
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text tokens in a sequence of ``seq_len`` positions: a vision config
+    gives ``n_frontend_tokens`` of them to the stubbed patch embeddings."""
+    if cfg.frontend == "vision":
+        return seq_len - cfg.n_frontend_tokens
+    return seq_len
+
 
 def value_and_grad(loss_fn: Callable, params: Params, batch, *,
                    has_aux: bool = False) -> Tuple[object, Params]:

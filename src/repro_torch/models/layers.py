@@ -1,5 +1,6 @@
-"""Shared building blocks of the dense decoder: rmsnorm and layernorm, rope,
-the gated SiLU MLP, tied or untied embeddings and the padded-vocab loss.
+"""Shared building blocks of the decoder: rmsnorm and layernorm, the
+activations, rope, the gated MLP, tied or untied embeddings and the
+padded-vocab loss.
 
 Functional like the reference (``repro/models/layers.py``): ``init_*``
 returns a param dict, the other functions take (params, inputs).  Norms,
@@ -8,8 +9,9 @@ softmaxes and the loss are computed in f32 whatever the param dtype.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +67,25 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6
 
 
 # --------------------------------------------------------------------------- #
+# activations
+# --------------------------------------------------------------------------- #
+def _relu_sq(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def activation(kind: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The reference's three: ``silu``, ``gelu`` (``jax.nn.gelu``'s default
+    tanh form) and ``relu_sq``."""
+    if kind == "silu":
+        return F.silu
+    if kind == "gelu":
+        return functools.partial(F.gelu, approximate="tanh")
+    if kind == "relu_sq":
+        return _relu_sq
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------- #
 # rotary position embeddings
 # --------------------------------------------------------------------------- #
 def rope_frequencies(d_head: int, theta: float,
@@ -88,10 +109,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# dense gated MLP (SiLU)
+# dense gated MLP
 # --------------------------------------------------------------------------- #
-def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["up"]) * (x @ p["gate"])) @ p["down"]
+def init_mlp(gen: torch.Generator, lead: Sequence[int], d: int, d_ff: int,
+             *, dtype: torch.dtype, device: torch.device) -> Params:
+    """Gated MLP params ``{up, down, gate}`` with leading dims ``lead``
+    (``(L,)`` for a stacked layer's)."""
+    lead = tuple(lead)
+    kw = dict(dtype=dtype, device=device)
+    return {"up": dense_init(gen, lead + (d, d_ff), **kw),
+            "down": dense_init(gen, lead + (d_ff, d), **kw),
+            "gate": dense_init(gen, lead + (d, d_ff), **kw)}
+
+
+def apply_mlp(p: Params, x: torch.Tensor, *, act: str = "silu"
+              ) -> torch.Tensor:
+    return (activation(act)(x @ p["up"]) * (x @ p["gate"])) @ p["down"]
 
 
 # --------------------------------------------------------------------------- #

@@ -1,19 +1,31 @@
-"""The dense decoder stack (``layer_pattern="a"``): the reference's
-``repro/models/transformer.py`` for homogeneous attention stacks.
+"""The decoder stack for homogeneous attention stacks
+(``layer_pattern="a"``): the reference's ``repro/models/transformer.py``
+for dense and sparse-expert decoders, with the stubbed vision prefix.
 
 Params are the reference's tree: ``embeds/{embed[, lm_head]}``,
 ``final_norm/{scale[, bias]}`` and ``layers/{mix,mlp,norm1,norm2}/...``
 (rmsnorm or layernorm, tied or untied head) with every layer leaf stacked on a
-leading ``[L, ...]`` axis, as ``init_stack`` builds it.  Stacked leaves
-matter beyond tidiness: the flat wire pads each *leaf* to a quantization
-block, so splitting them per layer would move the block boundaries.  The
-forward unbinds each stacked leaf once and loops over the layers in Python
-(the reference scans); ``unbind``'s backward stacks the per-layer grads in
-one copy.  With ``remat`` (the default, as in the reference) each layer's
+leading ``[L, ...]`` axis, as ``init_stack`` builds it.  The MLP of a
+layer is a gated MLP ``{up, down, gate}`` or, for a config with ``moe`` on
+every layer, the experts ``{router, w_gate, w_up, w_down[, shared]}``
+(``models/moe.py``: an f32 router beside the model's dtype, experts
+stacked ``[L, E, d, f]``); an MoE layer adds its load-balance loss to the
+stack's auxiliary loss, and ``loss_fn`` returns ``loss + AUX_LOSS_COEF *
+aux``.  Stacked leaves matter beyond tidiness: the flat wire pads each
+*leaf* to a quantization block, so splitting them per layer would move
+the block boundaries.  The forward unbinds each stacked leaf once and
+loops over the layers in Python (the reference scans); ``unbind``'s
+backward stacks the per-layer grads in one copy.  With ``remat`` (the default, as in the reference) each layer's
 forward runs under ``torch.utils.checkpoint``, the counterpart of the
 reference's ``jax.checkpoint`` around its scan body: the backward keeps
 only each layer's input and recomputes the layer's internals (at seq 4096
 the blockwise-attention scores alone are gigabytes per layer).
+
+A ``frontend="vision"`` config (phi-3-vision) takes precomputed patch
+embeddings as ``batch["frontend_embeds"]`` ``[B, n_frontend_tokens, d]``:
+``embed_inputs`` puts them before the token embeddings, the positions run
+on through the text, and ``loss_fn`` scores the text positions only.  The
+vision tower itself is a stub in the reference too.
 
 Serving: ``prefill`` runs the forward once and returns the last position's
 logits and the cache ``{"layers": {k, v}}`` stacked ``[L, B, S, KVH, D]``;
@@ -34,19 +46,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist.policy import constrain
 from . import attention as attn
-from .layers import (Params, apply_mlp, apply_norm, chunked_loss, dense_init,
-                     embed_tokens, init_embeddings, init_norm, unembed)
+from .layers import (Params, apply_mlp, apply_norm, chunked_loss,
+                     embed_tokens, init_embeddings, init_mlp, init_norm,
+                     unembed)
+from .moe import init_moe, moe_forward
+
+AUX_LOSS_COEF = 0.01
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.layer_pattern != "a" or cfg.moe is not None
+    if (cfg.layer_pattern != "a"
+            or (cfg.moe is not None and cfg.moe.moe_layers != "all")
             or cfg.norm not in ("rmsnorm", "layernorm") or cfg.act != "silu"
             or cfg.mlp_bias or cfg.encoder is not None
-            or cfg.frontend != "none"):
+            or cfg.frontend not in ("none", "vision")):
         raise NotImplementedError(
-            f"{cfg.name}: the port carries dense attention decoders with "
-            "rmsnorm or layernorm and a gated SiLU MLP so far")
+            f"{cfg.name}: the port carries attention decoders with rmsnorm "
+            "or layernorm, a gated SiLU MLP or experts on every layer, and "
+            "no frontend or the vision stub, so far")
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
@@ -60,28 +79,40 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
         "final_norm": init_norm(cfg.norm, (d,), **kw),
         "layers": {
             "mix": attn.init_gqa(gen, cfg, n, **kw),
-            "mlp": {"up": dense_init(gen, (n, d, cfg.d_ff), **kw),
-                    "down": dense_init(gen, (n, cfg.d_ff, d), **kw),
-                    "gate": dense_init(gen, (n, d, cfg.d_ff), **kw)},
+            "mlp": (init_moe(gen, cfg, (n,), **kw) if cfg.moe is not None
+                    else init_mlp(gen, (n,), d, cfg.d_ff, **kw)),
             "norm1": init_norm(cfg.norm, (n, d), **kw),
             "norm2": init_norm(cfg.norm, (n, d), **kw),
         },
     }
 
 
+def _mlp(p: Params, hn: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP: (out, aux loss) of the experts, or (out, None)."""
+    if cfg.moe is not None:
+        return moe_forward(p, hn, cfg)
+    return apply_mlp(p, hn, act=cfg.act), None
+
+
 def layer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence layer.  Returns (h, cache contribution {k, v})."""
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                             Optional[torch.Tensor]]:
+    """Full-sequence layer.  Returns (h, cache contribution {k, v}, the
+    MoE aux loss or None)."""
     mix_out, kv = attn.gqa_forward(p["mix"], apply_norm(cfg.norm, p["norm1"],
                                                         h), cfg)
-    h = h + mix_out
-    return h + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h)), kv
+    h = constrain(h + mix_out, "residual")
+    mlp_out, aux = _mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), cfg)
+    return constrain(h + mlp_out, "residual"), kv, aux
 
 
-def _layer_h(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """``layer_forward``'s h alone: what a rematerialized layer returns, so
-    the checkpoint keeps no cache contribution as an output."""
-    return layer_forward(p, h, cfg)[0]
+def _layer_h(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """``layer_forward`` without the cache contribution: what a
+    rematerialized layer returns, so the checkpoint keeps no k, v as an
+    output.  h alone for a dense layer, (h, aux) for an MoE layer."""
+    h, _, aux = layer_forward(p, h, cfg)
+    return h if aux is None else (h, aux)
 
 
 def layer_decode(p: Params, h: torch.Tensor, cache: Params, pos: int,
@@ -93,8 +124,8 @@ def layer_decode(p: Params, h: torch.Tensor, cache: Params, pos: int,
     else:
         mix_out, cache_new = attn.gqa_decode(p["mix"], hn, cache, pos, cfg)
     h = h + mix_out
-    return h + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h)), \
-        cache_new
+    mlp_out, _ = _mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], h), cfg)
+    return h + mlp_out, cache_new
 
 
 def _unbind_layers(tree, n: int):
@@ -136,25 +167,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------- #
 def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
                   remat: bool = True, collect_cache: bool = False
-                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+                  ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run all layers.  Returns (h, the stacked cache {"layers": {k, v}}
-    ``[L, B, S, KVH, D]`` or None)."""
+    ``[L, B, S, KVH, D]`` or None, the summed aux loss: f32, zero for a
+    dense stack)."""
     # nothing to recompute when no graph is being recorded
     remat = remat and torch.is_grad_enabled() and not collect_cache
     cache = None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, layer_p in enumerate(_unbind_layers(params["layers"],
                                                cfg.n_layers)):
         if remat:
-            h = checkpoint(_layer_h, layer_p, h, cfg, use_reentrant=False)
+            out = checkpoint(_layer_h, layer_p, h, cfg, use_reentrant=False)
+            if cfg.moe is None:
+                h = out
+            else:
+                h, a = out
+                aux = aux + a
             continue
-        h, kv = layer_forward(layer_p, h, cfg)
+        h, kv, a = layer_forward(layer_p, h, cfg)
+        if a is not None:
+            aux = aux + a
         if collect_cache:
             if cache is None:  # one [L, ...] buffer per leaf, no stack copy
                 cache = {k: t.new_empty((cfg.n_layers,) + tuple(t.shape))
                          for k, t in kv.items()}
             for k, t in kv.items():
                 cache[k][i] = t
-    return h, ({"layers": cache} if collect_cache else None)
+    return h, ({"layers": cache} if collect_cache else None), aux
 
 
 def stack_decode(params: Params, h: torch.Tensor, cache: Params, pos: int,
@@ -169,25 +209,38 @@ def stack_decode(params: Params, h: torch.Tensor, cache: Params, pos: int,
 # --------------------------------------------------------------------------- #
 # model-level entry points
 # --------------------------------------------------------------------------- #
+def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings, after the stubbed patch embeddings
+    (``batch["frontend_embeds"]``) for a vision config that is given
+    them."""
+    h = embed_tokens(params["embeds"], batch["tokens"])
+    if cfg.frontend == "vision" and "frontend_embeds" in batch:
+        h = torch.cat([batch["frontend_embeds"].to(h.dtype), h], dim=1)
+    return h
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, remat: bool = True,
             collect_cache: bool = False
-            ) -> Tuple[torch.Tensor, Optional[Params]]:
-    h = embed_tokens(params["embeds"], batch["tokens"])
-    h, cache = stack_forward(params, h, cfg, remat=remat,
-                             collect_cache=collect_cache)
-    return apply_norm(cfg.norm, params["final_norm"], h), cache
+            ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (the final-normed h, the cache or None, the aux loss)."""
+    h = constrain(embed_inputs(params, batch, cfg), "residual")
+    h, cache, aux = stack_forward(params, h, cfg, remat=remat,
+                                  collect_cache=collect_cache)
+    return apply_norm(cfg.norm, params["final_norm"], h), cache, aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h, _ = forward(params, batch, cfg, remat=remat)
+    """(loss + AUX_LOSS_COEF * aux, {"loss", "aux_loss"}); the loss is over
+    the text positions (after a vision prefix)."""
+    h, _, aux = forward(params, batch, cfg, remat=remat)
+    if cfg.frontend == "vision" and "frontend_embeds" in batch:
+        h = h[:, batch["frontend_embeds"].shape[1]:]
     loss = chunked_loss(h, params["embeds"], batch["labels"], cfg.vocab_size)
-    # dense stacks have no auxiliary loss; the key keeps the reference's
-    # (total, {"loss", "aux_loss"}) contract
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return loss, {"loss": loss, "aux_loss": aux}
+    return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -196,8 +249,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     (last-position logits [B, V_pad], cache).  Inference only: no graph is
     recorded."""
     with torch.no_grad():
-        h, cache = forward(params, batch, cfg, remat=False,
-                           collect_cache=True)
+        h, cache, _ = forward(params, batch, cfg, remat=False,
+                              collect_cache=True)
         return unembed(params["embeds"], h[:, -1]), cache
 
 

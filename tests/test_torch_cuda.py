@@ -479,6 +479,52 @@ class TestFlashWgmmaOnCard:
                                                           causal=causal))
 
 
+_FLASH_D96 = [
+    (dtype, s, causal, heads, strided)
+    for dtype in (torch.bfloat16, torch.float32)
+    for s in (16, 48, 1000, 4096)
+    for causal, heads, strided in ((True, (32, 32), True),
+                                   (False, (8, 2), False),
+                                   (True, (8, 2), False))]
+
+
+@pytest.mark.cuda
+class TestFlashD96OnCard:
+    """Head dim 96 (phi-3-vision's 3072 / 32) in both bodies: the bf16
+    ``wgmma`` body (m64n96k16 for p.v, six k16 steps for q.k^T) and the f32
+    CUDA-core body, against the plain version with ``attn_check``'s rules
+    (bf16 one ulp; f32 atol 2e-5 / rtol 1e-5): causal and not, grouped
+    and not, ragged tiles, on transposed [B, S, H, D] views."""
+
+    @pytest.mark.parametrize("dtype,s,causal,heads,strided", _FLASH_D96)
+    def test_flash_attention_d96(self, dtype, s, causal, heads, strided):
+        _need_card()
+        h, kvh = heads
+        q, k, v = _attn_inputs(1, h, kvh, s, 96, dtype, seed=s + h,
+                               strided=strided)
+        before = ops.flash_attention_op.launches
+        with torch.no_grad():
+            out = ops.flash_attention_op(q, k, v, causal=causal)
+        assert ops.flash_attention_op.launches == before + 1
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == dtype
+        if strided:
+            assert out.transpose(1, 2).is_contiguous()
+        _assert_attn_close(out, ref)
+
+    def test_flash_attention_d96_batch_and_sq_differs(self):
+        _need_card()
+        for dtype in (torch.bfloat16, torch.float32):
+            q, _, _ = _attn_inputs(2, 8, 4, 200, 96, dtype, seed=3)
+            _, k, v = _attn_inputs(2, 8, 4, 333, 96, dtype, seed=4)
+            for causal in (True, False):
+                with torch.no_grad():
+                    out = ops.flash_attention_op(q, k, v, causal=causal)
+                _assert_attn_close(out, flash_attention_plain(
+                    q, k, v, causal=causal))
+
+
 def _scatter_args(idx, q, s, w):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in (idx, q, s, w)]

@@ -14,8 +14,9 @@
 * The package imports neither JAX nor the JAX package, not even after a
   world-of-one in-graph MLfabric step, the tiers, a prefill and decode
   steps, the serve loop, one step of the training CLI, pod-async, sync
-  and SSP training and an elastic session, and never falls back to the
-  CPU unasked.
+  and SSP training, an elastic session, a paper scenario under the phase
+  profiler and the qwen2-7b, phi-3-vision and granite-moe families, and
+  never falls back to the CPU unasked.
 """
 
 import os
@@ -311,6 +312,35 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     sess.run_steps([None])
     (q, s), _ = compress_update(torch.ones(300))
     assert dequantize_op(q, s, orig_len=300).shape == (300,)
+
+    # slice 7: a paper scenario under the phase profiler, the roofline
+    # model, and the qwen2-7b, phi-3-vision and granite-moe families
+    from repro_torch.obs import PhaseProfiler, aggregator_hbm_traffic
+    from repro_torch.scenarios import paper_dynamic_cluster
+    prof = PhaseProfiler()
+    res = AsyncTrainer(params, model.loss_fn, data_fn, n_workers=4,
+                       update_size=mb(1), has_aux=True, compress=True,
+                       scenario=paper_dynamic_cluster(4, horizon=1.0),
+                       callbacks=[prof], device="cpu").run(until_commits=3)
+    assert prof.summary()["metrics"]["commits"] == res.commits
+    assert aggregator_hbm_traffic(4, 1024)["ratio"] > 1.0
+    from repro_torch.models import text_len
+    for arch in ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m"):
+        fcfg = get_config(arch).reduced()
+        fm = build_model(fcfg, dtype=torch.float32, device="cpu")
+        fp = fm.init(torch.Generator().manual_seed(0))
+        fb = {{"tokens": torch.zeros((1, text_len(fcfg, 16)),
+                                    dtype=torch.int32)}}
+        if fcfg.frontend == "vision":
+            fb["frontend_embeds"] = torch.zeros(
+                (1, fcfg.n_frontend_tokens, fcfg.d_model))
+        total, aux = fm.loss_fn(fp, {{**fb, "labels": fb["tokens"]}})
+        assert torch.isfinite(total) and (float(aux["aux_loss"]) > 0) == (
+            fcfg.moe is not None)
+        logits, _ = fm.prefill(fp, fb)
+        logits, _ = fm.decode_step(fp, fm.init_cache(1, 4),
+                                   fb["tokens"][:, :1], 0)
+        assert torch.isfinite(logits).all()
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
