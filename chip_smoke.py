@@ -70,7 +70,8 @@ toolkit.  Every line it prints is one JSON object:
    and 48, and D 96 (bf16 ragged and not causal, f32 ragged, S 48).
    Within atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in bf16.  Timed
    too, with SDPA and the bound: phi-3-vision's D 96 (32/32 heads, B 1,
-   S 4096) in bf16 and f32, and qwen2-7b's D 128 (28/4 heads, S 32768).
+   S 4096) in bf16 and f32, qwen2-7b's D 128 (28/4 heads, S 32768) and
+   jamba's attention layer (32/8 heads of 128, S 32768).
 11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
    f32 under the "pallas" impl, card against CPU: prefill logits and
    cache, 24 decode steps (teacher-forced, then greedy) with the
@@ -103,8 +104,10 @@ toolkit.  Every line it prints is one JSON object:
    gloo processes sharing the card, reduced model, against the auto step;
    then the three tiers on that world.
 18. ``reduced_family_parity``: the reduced qwen2-7b, phi-3-vision (with
-   patch embeddings) and granite-moe in f32, card against CPU: loss, aux
-   loss, the "pallas" prefill's logits and cache and 4 decode steps.
+   patch embeddings), granite-moe, deepseek-v2 (MLA), jamba (mamba and
+   attention, experts on odd layers) and rwkv6 in f32, card against CPU:
+   loss, aux loss, the "pallas" prefill's logits and every cache entry and
+   4 decode steps; one flash launch an attention layer.
 19. ``scenario``: cell A's MLfabric-A under
    ``scenarios.paper_dynamic_cluster(4, horizon=12)`` (a leave, an
    aggregator outage, a congestion wave, a join) with a ``PhaseProfiler``:
@@ -123,7 +126,20 @@ toolkit.  Every line it prints is one JSON object:
    "blockwise", 8 decode steps from it.
 23. ``qwen2_7b_serve``: cell D's serve phase on qwen2-7b (28 flash launches
    at D 128 a prefill; decode at pos 32767 at batch 16 on a 30.1 GB cache).
-24. The ``{"kernels": [...]}`` summary (seven kernels), then
+24. ``deepseek_serve`` (cell M): deepseek-v2-236b at its published widths
+   (MLA ranks 1536/512 with rope 64, 160 routed and 2 shared experts, top
+   6), 4 of 60 layers: a 4,096-token prefill (the blockwise loop, no
+   kernel: bit-equal to "blockwise"), ``decode_32k`` at batch 128 on a
+   19.3 GB latent cache, prefill against decode (bf16; f32 on one layer).
+25. ``jamba_serve`` (cell N): jamba-v0.1-52b, one block of 8 layers (7
+   mamba, 1 attention, experts on the 4 odd ones): the 32k prefill (one
+   flash launch at D 128, 32/8 heads) against "blockwise" with the
+   routing held, ``long_500k`` decode at pos 524287, prefill against
+   decode with the recurrent states as the cache.
+26. ``rwkv_serve`` (cell O): rwkv6-1.6b whole (24 layers): the 32k
+   prefill (no kernel: bit-equal), ``long_500k`` decode beside a step at
+   pos 0, the serve loop, prefill against decode.
+27. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -1691,6 +1707,21 @@ VLM_PREFILL_TOL = 1e-1           # its prefill, "pallas" vs "blockwise"
 # 83.9% / 130%.  Free-running routing reads as much as those faults
 MOE_PREFILL_TOL = 2.3e-1         # its 32k prefill, "pallas" vs "blockwise"
 MOE_CACHE_TOL = 2.6e-1           # its prefill vs the decode-built cache
+# slice 8's families (cells M-O), by the same rule, each its own
+# (scripts/serve_tolerance.py 6 --arch A).  deepseek-v2 and rwkv6 launch no
+# kernel, so their two prefills must be bit-equal.  Prefill against decode:
+# deepseek-v2 sound up to 1.95%, a float8 latent 7.2%; rwkv6 sound 2.6%,
+# float8 r, k, v 7.4%, the token shift one step late 108%.  jamba (routing
+# held): the 32k prefill sound up to 2.48%, float8 scan inputs 15.0%, the
+# conv window one step late 149%; prefill against decode sound 5.37%,
+# float8 14.2%, the conv 161%.  Its one attention layer in eight hides the
+# attention faults in bf16 (the mask one key off, float8 q, k, v, the
+# scale 1% off: 1.4-3.0%, as much as the sound readings); in f32 the mask
+# (0.49% and up) and float8 (0.26%) pass F32_REL_TOL, and the flash
+# kernel's own check at jamba's shape holds the kernel to one bf16 ulp
+FAMILY_PREFILL_TOL = {"jamba-v0.1-52b": 5e-2}
+FAMILY_CACHE_TOL = {"deepseek-v2-236b": 4e-2, "jamba-v0.1-52b": 1.1e-1,
+                    "rwkv6-1.6b": 5.2e-2}
 
 
 def attn_work(b: int, h: int, kvh: int, s: int, d: int, causal: bool):
@@ -1723,7 +1754,8 @@ def attn_bound_f32_pv_ms(flops: float) -> float:
 # the timed shapes, bf16 and causal unless named: Qwen2-0.5B's 14/2 heads
 # of 64 at (B 2, S 4096) and at the prefill shape (B 1, S 32768; the
 # kernel line's row), phi-3-vision's head dim 96 (32/32 heads; its
-# 4096-position prefill) in both bodies and qwen2-7b's 28/4 heads of 128
+# 4096-position prefill) in both bodies, qwen2-7b's 28/4 heads of 128 at
+# 32k and jamba's 32/8 heads of 128 (its attention layer, a GQA group of 4)
 # at 32k.  (B, H, KVH, S, D, dtype, seed)
 FLASH_TIMED = {
     "qwen2-0.5b B 2 S 4096": (2, ATTN_HEADS, ATTN_KV_HEADS, 4096, ATTN_D,
@@ -1733,6 +1765,7 @@ FLASH_TIMED = {
     "phi-3-vision D 96 bf16": (1, 32, 32, 4096, 96, "bfloat16", 4192),
     "phi-3-vision D 96 f32": (1, 32, 32, 4096, 96, "float32", 4192),
     "qwen2-7b D 128 bf16": (1, 28, 4, 32768, 128, "bfloat16", 32896),
+    "jamba D 128 32/8 bf16": (1, 32, 8, 32768, 128, "bfloat16", 33024),
 }
 FLASH_KERNEL_LINE = "qwen2-0.5b prefill"
 
@@ -1981,33 +2014,66 @@ def _bf16_rel(a, b) -> float:
         float(b.float().abs().max()), 1e-30)
 
 
+# cache entries with a position axis ([stack, B, S, ...]): attention's k
+# and v, MLA's latent; the others (mamba's conv and ssm, rwkv's shift, wkv
+# and cm_shift) are states, the whole of which a prefill hands on
+POSITIONAL = ("k", "v", "ckv", "krope")
+
+
+def cache_slots(cache) -> list:
+    """A cache's layer entries as a list of dicts of stacked tensors: one
+    for a homogeneous stack, one a slot for a heterogeneous one."""
+    layers = cache["layers"]
+    return [layers] if isinstance(layers, dict) else list(layers)
+
+
+def cache_entries(cache, cache_ref=None):
+    """(name, tensor[, the reference's tensor]) for every cache entry, the
+    reference's positional ones cut to the positions the first holds."""
+    slots = cache_slots(cache)
+    refs = cache_slots(cache_ref) if cache_ref is not None else slots
+    for slot, ref in zip(slots, refs):
+        for k, t in slot.items():
+            if cache_ref is None:
+                yield k, t
+            else:
+                yield k, t, (ref[k][:, :, :t.shape[2]] if k in POSITIONAL
+                             else ref[k])
+
+
 def prefill_rel(logits, cache, logits_ref, cache_ref) -> dict:
-    """Largest difference of two prefills' logits and caches, each over
-    the largest value of the second."""
-    return {"logits": _bf16_rel(logits, logits_ref),
-            **{k: _bf16_rel(cache["layers"][k], cache_ref["layers"][k])
-               for k in ("k", "v")}}
+    """Largest difference of two prefills' logits and cache entries (k and
+    v, or each layer kind's), each over the largest value of the
+    second."""
+    out = {"logits": _bf16_rel(logits, logits_ref)}
+    for k, a, b in cache_entries(cache, cache_ref):
+        out[k] = max(out.get(k, 0.0), _bf16_rel(a, b))
+    return out
 
 
 def cache_row_stats(cache, cache_ref, limit: float) -> dict:
-    """Per cache row (layer, batch row, position) of k and v: the largest
-    difference over the largest value of ``cache_ref`` (over the positions
-    ``cache`` holds); the share of rows above ``limit`` and the median and 99th
-    percentile of the rows' readings.  A sparse-expert model's bf16 paths
-    can route a token to other experts (a near tie in the router, or a
-    capacity slot taken by a token before it), which moves that token's
-    later rows as a whole: these say how many rows moved, where the
-    largest reading says only that one did."""
+    """Per cache row (layer, batch row, position) of each positional
+    entry: the largest difference over the largest value of ``cache_ref``
+    (over the positions ``cache`` holds); the share of rows above
+    ``limit`` and the median and 99th percentile of the rows' readings.
+    A sparse-expert model's bf16 paths can route a token to other experts
+    (a near tie in the router, or a capacity slot taken by a token before
+    it), which moves that token's later rows as a whole: these say how
+    many rows moved, where the largest reading says only that one did."""
     import torch
+    rows = {}
+    for k, a, b in cache_entries(cache, cache_ref):
+        if k in POSITIONAL:
+            a, b = a.float(), b.float()
+            rows.setdefault(k, []).append(
+                ((a - b).abs().amax(dim=tuple(range(3, a.dim())))
+                 / max(float(b.abs().max()), 1e-30)).flatten())
     out = {}
-    for k in ("k", "v"):
-        a = cache["layers"][k].float()
-        b = cache_ref["layers"][k][:, :, :a.shape[2]].float()
-        rows = ((a - b).abs().amax(dim=(-2, -1))
-                / max(float(b.abs().max()), 1e-30)).flatten()
-        out[k] = {"rows_over": float((rows > limit).float().mean()),
-                  "q50": float(torch.quantile(rows, 0.5)),
-                  "q99": float(torch.quantile(rows, 0.99))}
+    for k, r in rows.items():
+        r = torch.cat(r)
+        out[k] = {"rows_over": float((r > limit).float().mean()),
+                  "q50": float(torch.quantile(r, 0.5)),
+                  "q99": float(torch.quantile(r, 0.99))}
     return out
 
 
@@ -2027,18 +2093,19 @@ def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec,
                       row_limit: float = None) -> dict:
     """The "pallas" prefill of ``prompts`` against the logits and cache
     that ``decode_built`` gave for them: per layer, the largest difference
-    of k and v over the prefill's largest value; the logits' difference;
+    of each cache entry (k and v, the latent, the recurrent states after
+    the last prompt token) over the prefill's largest value, and the
+    first layer's of each; the logits' difference;
     the prefill's top-1 margins and the rows whose top-1 agree; with
     ``row_limit``, ``cache_row_stats`` at that limit."""
     from repro_torch.models import attention
     attention.set_attention_impl("pallas")
     logits_pre, cache_pre = model.prefill(params, {"tokens": prompts})
     attention.set_attention_impl("blockwise")
-    n = prompts.shape[1]
-    rel = {k: [_bf16_rel(cache_dec["layers"][k][i, :, :n],
-                         cache_pre["layers"][k][i])
-               for i in range(cache_pre["layers"][k].shape[0])]
-           for k in ("k", "v")}
+    rel = {}
+    for k, pre, dec in cache_entries(cache_pre, cache_dec):
+        rel.setdefault(k, []).extend(_bf16_rel(dec[i], pre[i])
+                                     for i in range(pre.shape[0]))
     top2 = logits_pre.float().topk(2, dim=-1).values
     rows = ({} if row_limit is None else
             {"rows": cache_row_stats(cache_pre, cache_dec, row_limit)})
@@ -2058,6 +2125,34 @@ def phase_serve():
     at its batch of 128."""
     from repro_torch.configs import SHAPES
     return serve_cell(FULL_ARCH, "serve", SHAPES["decode_32k"].global_batch)
+
+
+def serve_loop(phase: str, cfg, model, params, launches_before: dict):
+    """``launch.serve.serve`` on ``SERVE_REQUESTS`` seeded requests of
+    ``SERVE_PROMPT`` tokens, batch ``SERVE_BATCH``, ``SERVE_NEW`` new
+    tokens each; it launches no kernel (the counts stay
+    ``launches_before``).  Returns (the requests served, the launches)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request, serve
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT)
+                    .astype(np.int32)) for i in range(SERVE_REQUESTS)]
+    max_len = SERVE_PROMPT + SERVE_NEW
+    done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len)
+    launches = ops_launches()
+    n_new = sum(len(r.output) for r in done)
+    emit({"phase": phase, "part": "serve_loop", "requests": len(done),
+          "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+          "max_new": SERVE_NEW, "decode_steps": steps, "seconds": dt,
+          "steps_per_s": steps / dt, "generated_tokens": n_new,
+          "generated_tokens_per_s": n_new / dt,
+          "first_outputs": [r.output[:8] for r in done[:2]]})
+    check(steps == SERVE_REQUESTS // SERVE_BATCH * (max_len - 1)
+          and n_new == SERVE_REQUESTS * SERVE_NEW, "serve loop counts")
+    check(launches == launches_before,
+          f"decode launched kernels: {launches}")
+    return done, launches
 
 
 def serve_cell(arch: str, phase: str, decode_batch: int):
@@ -2083,7 +2178,6 @@ def serve_cell(arch: str, phase: str, decode_batch: int):
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import build_step, make_host_mesh
-    from repro_torch.launch.serve import Request, serve
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -2148,24 +2242,9 @@ def serve_cell(arch: str, phase: str, decode_batch: int):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the serve loop ------------------------------------------------------
-    rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT)
-                    .astype(np.int32)) for i in range(SERVE_REQUESTS)]
+    done, serve_launches = serve_loop(phase, cfg, model, params,
+                                      prefill_launches)
     max_len = SERVE_PROMPT + SERVE_NEW
-    done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len)
-    serve_launches = ops_launches()
-    n_new = sum(len(r.output) for r in done)
-    emit({"phase": phase, "part": "serve_loop", "requests": len(done),
-          "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
-          "max_new": SERVE_NEW, "decode_steps": steps, "seconds": dt,
-          "steps_per_s": steps / dt, "generated_tokens": n_new,
-          "generated_tokens_per_s": n_new / dt,
-          "first_outputs": [r.output[:8] for r in done[:2]]})
-    check(steps == SERVE_REQUESTS // SERVE_BATCH * (max_len - 1)
-          and n_new == SERVE_REQUESTS * SERVE_NEW, "serve loop counts")
-    check(serve_launches == prefill_launches,
-          f"decode launched kernels: {serve_launches}")
 
     # -- consistency of prefill and decode (a check, not the serve path) ----
     prompts = torch.from_numpy(np.stack([r.prompt for r in
@@ -2178,7 +2257,7 @@ def serve_cell(arch: str, phase: str, decode_batch: int):
                               *decode_built(m, p, prompts, max_len))
         name = str(dtype).removeprefix("torch.")
         emit({"phase": phase, "part": "prefill_vs_decode", "dtype": name,
-              "rows": SERVE_BATCH, "positions": SERVE_PROMPT, **r})
+              "batch": SERVE_BATCH, "positions": SERVE_PROMPT, **r})
         limit = BF16_CACHE_TOL if dtype == torch.bfloat16 else F32_REL_TOL
         check(all(v <= limit for v in r["cache_rel_err_max"].values()),
               f"{name} prefill and decode caches differ: {r}")
@@ -2722,7 +2801,8 @@ def phase_reduced_ps_parity(seeds=PS_PARITY_SEEDS) -> None:
 # fresh worker joins at 6 s, worker1's aggregator role fails at 4 s and
 # worker0's and worker3's NICs dip to 1 Gb/s from 3 s for 4 s; cell A's
 # full-width update (a 494 MB int8 wire) commits before, between and after
-FAMILY_ARCHS = ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m")
+FAMILY_ARCHS = ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
+                "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b")
 SCENARIO_HORIZON = 12.0
 MOE_ARCH, MOE_COMMITS = "granite-moe-1b-a400m", 8
 VLM_ARCH, VLM_SEQ = "phi-3-vision-4.2b", 4096
@@ -2899,9 +2979,9 @@ class RouteHold:
     back, call by call, with the gates read from its own router
     probabilities: the two paths then differ only continuously (attention,
     rounding, the gates), as a dense model's do.  ``plan=None`` replays in
-    call order (another prefill); ``decode_plan(n_layers)`` turns the
-    one-token steps of ``decode_built`` into the prefill's per-layer
-    calls."""
+    call order (another prefill); ``decode_plan(n_moe)`` turns the
+    one-token steps of ``decode_built`` (``n_moe`` router calls each, one
+    an expert layer) into the prefill's per-layer calls."""
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2919,14 +2999,15 @@ class RouteHold:
     def replay(self, plan=None) -> None:
         self.plan = list(self.calls if plan is None else plan)
 
-    def decode_plan(self, n_layers: int) -> list:
-        """Per layer, the recorded one-token steps' choices side by side
-        along the sequence: what a prefill of those positions calls."""
+    def decode_plan(self, n_moe: int) -> list:
+        """Per expert layer, the recorded one-token steps' choices side by
+        side along the sequence: what a prefill of those positions
+        calls."""
         import torch
-        steps = len(self.calls) // n_layers
-        return [torch.cat([self.calls[t * n_layers + layer]
+        steps = len(self.calls) // n_moe
+        return [torch.cat([self.calls[t * n_moe + layer]
                            for t in range(steps)], dim=1)
-                for layer in range(n_layers)]
+                for layer in range(n_moe)]
 
     def _router_topk(self, probs, k):
         if self.plan is None:
@@ -2940,12 +3021,30 @@ class RouteHold:
         return probs.gather(-1, idx), idx
 
 
+def moe_layers(cfg) -> int:
+    """The layers with experts: the router calls of one decode step."""
+    return sum(cfg.moe is not None and cfg.moe.is_moe_layer(i)
+               for i in range(cfg.n_layers))
+
+
 def prefill_limit(cfg) -> float:
     """The bf16 limit of ``cfg``'s serving prefill, "pallas" against
-    "blockwise"."""
+    "blockwise": 0 (bit-equal) where no attention layer runs a kernel."""
+    if attention_layers(cfg) == 0:
+        return 0.0
+    if cfg.name in FAMILY_PREFILL_TOL:
+        return FAMILY_PREFILL_TOL[cfg.name]
     if cfg.moe is not None:
         return MOE_PREFILL_TOL
     return VLM_PREFILL_TOL if cfg.frontend == "vision" else BF16_PREFILL_TOL
+
+
+def cache_limit(cfg) -> float:
+    """The bf16 limit of ``cfg``'s prefill against the decode-built
+    cache."""
+    if cfg.name in FAMILY_CACHE_TOL:
+        return FAMILY_CACHE_TOL[cfg.name]
+    return MOE_CACHE_TOL if cfg.moe is not None else BF16_CACHE_TOL
 
 
 def routing_drops(calls, moe) -> dict:
@@ -2978,23 +3077,44 @@ def routing_drops(calls, moe) -> dict:
             "tokens_lost_every_choice_max": lost_all}
 
 
-def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
+def attention_layers(cfg) -> int:
+    """The layers of kind "a": the prefill's flash launches."""
+    return sum(k == "a" for k in cfg.layer_kinds)
+
+
+def cache_layout(cfg, batch: int, seq: int) -> list:
+    """``cache_slots``' shapes of a cache of ``seq`` positions (a
+    prefill's or ``init_cache``'s), from the model's own spec."""
+    from repro_torch.models import transformer as tf
+    gs = cfg.group_size
+    n = cfg.n_layers if gs == 1 else cfg.n_groups
+    return [{k: (n,) + shape for k, (shape, _) in tf.layer_cache_spec(
+        cfg, s, batch, seq).items()} for s in range(gs)]
+
+
+def prefill_cell(phase: str, cfg, model, params, batch,
+                 reduced: dict = None) -> tuple:
     """A prefill of ``batch`` through ``build_step`` under "pallas": 1
-    warm-up and ``PREFILL_TIMED`` timed, one flash launch a layer each and
-    nothing else; then under "blockwise", logits and cache within
+    warm-up and ``PREFILL_TIMED`` timed, one flash launch an attention
+    layer each and nothing else; then under "blockwise", logits and cache within
     ``prefill_limit`` of the largest value.  For a config with experts
-    the "blockwise" run records its routing and one more "pallas" prefill
-    replays it (``RouteHold``): that pair is checked, within
+    the "blockwise" run records its routing and, where a kernel runs, one
+    more "pallas" prefill replays it (``RouteHold``): that pair is checked, within
     ``MOE_PREFILL_TOL``, and the timed prefill's free-running difference is
     printed beside it, with the share of choices the "blockwise" run
-    dropped (``routing_drops``).  Returns the "pallas" logits and cache and the
-    launches."""
+    dropped (``routing_drops``).  A config with no attention layer launches
+    nothing, and its two prefills must be bit-equal (``prefill_limit``
+    0).  ``reduced`` (the
+    cuts of a cell) goes into the printed line.  Returns the "pallas"
+    logits and cache and the launches."""
     import torch
     from repro_torch.configs import SHAPES
     from repro_torch.launch import build_step, make_host_mesh
     from repro_torch.models import attention
 
     dev = model.device
+    reduced = reduced or {}
+    n_attn = attention_layers(cfg)
     b, n = batch["tokens"].shape
     seq = n + (batch["frontend_embeds"].shape[1]
                if "frontend_embeds" in batch else 0)
@@ -3026,6 +3146,7 @@ def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
             held["rel_err_free_routing"] = rel
             held["rows_free_routing"] = cache_row_stats(
                 cache, cache_bw, MOE_PREFILL_TOL)
+        if cfg.moe is not None and n_attn:
             attention.set_attention_impl("pallas")
             hold.replay()
             rel = prefill_rel(*step.fn(params, batch), logits_bw, cache_bw)
@@ -3033,10 +3154,15 @@ def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
             attention.set_attention_impl("blockwise")
     s_prefill = sum(secs[1:]) / PREFILL_TIMED
     want = dict.fromkeys(KERNELS, 0)
-    want["flash_attention"] = cfg.n_layers * (1 + PREFILL_TIMED)
+    want["flash_attention"] = n_attn * (1 + PREFILL_TIMED)
     emit({"phase": phase, "part": "prefill", "arch": cfg.name,
           "n_layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads],
-          "head_dim": cfg.head_dim, "dtype": "bfloat16", "impl": "pallas",
+          "head_dim": cfg.head_dim if cfg.mla is None else [
+              cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+              cfg.mla.v_head_dim],
+          "dtype": "bfloat16", "impl": "pallas",
+          "layer_pattern": cfg.layer_pattern, "attention_layers": n_attn,
+          **reduced,
           "seq_len": seq, "text_tokens": n, "batch": b,
           "warmup_s": secs[0], "prefill_s": secs[1:],
           "s_per_prefill": s_prefill,
@@ -3049,9 +3175,9 @@ def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
                             f"{want}")
     check(bool(torch.isfinite(logits).all())
           and logits.shape == (b, cfg.padded_vocab), f"{phase}: logits")
-    check(tuple(cache["layers"]["k"].shape) == (
-        cfg.n_layers, b, seq, cfg.n_kv_heads, cfg.head_dim),
-        f"{phase}: cache shape")
+    check([{k: tuple(t.shape) for k, t in slot.items()}
+           for slot in cache_slots(cache)] == cache_layout(cfg, b, seq),
+          f"{phase}: cache shape")
     limit = prefill_limit(cfg)
     check(all(r <= limit for r in rel.values()),
           f"{phase}: pallas and blockwise prefill differ: {rel}")
@@ -3060,14 +3186,15 @@ def prefill_cell(phase: str, cfg, model, params, batch) -> tuple:
 
 
 def decode_after_prefill(phase: str, model, params, logits, cache,
-                         steps: int) -> list:
-    """``steps`` greedy decode steps that continue a prefill: its cache
-    copied into one of ``steps`` more positions.  Returns the tokens."""
+                         steps: int, seq: int) -> list:
+    """``steps`` greedy decode steps that continue a prefill of ``seq``
+    positions: its cache copied into one of ``steps`` more positions (the
+    recurrent states whole).  Returns the tokens."""
     import torch
-    n_layers, b, seq = cache["layers"]["k"].shape[:3]
+    b = logits.shape[0]
     dec = model.init_cache(b, seq + steps)
-    for k, t in cache["layers"].items():
-        dec["layers"][k][:, :, :seq].copy_(t)
+    for _, t, d in cache_entries(cache, dec):
+        d.copy_(t)
     tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
     launches0 = ops_launches()
     secs, toks = [], []
@@ -3115,13 +3242,12 @@ def phase_moe_serve() -> dict:
     logits, cache, launches = prefill_cell("moe_serve", cfg, model, params,
                                            {"tokens": tokens})
     decode_after_prefill("moe_serve", model, params, logits, cache,
-                         AFTER_PREFILL_STEPS)
+                         AFTER_PREFILL_STEPS, tokens.shape[1])
     del logits, cache, tokens
     gc.collect()
     torch.cuda.empty_cache()
 
-    free = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    free = drop_free(cfg)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
@@ -3133,7 +3259,7 @@ def phase_moe_serve() -> dict:
         limit = MOE_CACHE_TOL if dtype == torch.bfloat16 else F32_REL_TOL
         with RouteHold() as hold:
             dec = decode_built(m, p, prompts, SERVE_PROMPT + SERVE_NEW)
-            hold.replay(hold.decode_plan(cfg.n_layers))
+            hold.replay(hold.decode_plan(moe_layers(cfg)))
             r = prefill_vs_decode(m, p, prompts, *dec, row_limit=limit)
         name = str(dtype).removeprefix("torch.")
         emit({"phase": "moe_serve", "part": "prefill_vs_decode",
@@ -3181,7 +3307,7 @@ def phase_vlm_serve() -> dict:
     logits, cache, launches = prefill_cell("vlm_serve", cfg, model, params,
                                            batch)
     decode_after_prefill("vlm_serve", model, params, logits, cache,
-                         AFTER_PREFILL_STEPS)
+                         AFTER_PREFILL_STEPS, VLM_SEQ)
     del logits, cache, batch, params, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3196,6 +3322,237 @@ def phase_qwen2_7b_serve() -> dict:
     prefill against decode in bf16 and f32."""
     return serve_cell(DENSE_7B_ARCH, "qwen2_7b_serve",
                       DENSE_7B_DECODE_BATCH)
+
+
+# --------------------------------------------------------------------------- #
+# slice 8: DeepSeek-V2's latent attention, the Jamba hybrid and RWKV6 served
+# at their published widths (cells M, N, O)
+# --------------------------------------------------------------------------- #
+# per cell: the phase, the layers run (of 60, 32 and 24 published), the
+# prefill's tokens at batch 1, the decode shape and batch, the layers of
+# the f32 prefill-against-decode check, and whether the serve loop runs
+SERVE_CELLS = {
+    "deepseek-v2-236b": dict(phase="deepseek_serve", layers=4, prefill=4096,
+                             decode="decode_32k", batch=128, f32_layers=1,
+                             serve_loop=False),
+    "jamba-v0.1-52b": dict(phase="jamba_serve", layers=8, prefill=32768,
+                           decode="long_500k", batch=1, f32_layers=8,
+                           serve_loop=False),
+    "rwkv6-1.6b": dict(phase="rwkv_serve", layers=24, prefill=32768,
+                       decode="long_500k", batch=1, f32_layers=24,
+                       serve_loop=True),
+}
+# each cell's cuts of scale, printed in its lines
+SERVE_CELL_CUTS = {
+    "deepseek-v2-236b": [
+        "depth 4 of 60 layers: the model is 477 GB in bf16, 4 layers 31.8 GB",
+        "prefill 4,096 tokens at batch 1, not prefill_32k's 32,768 at 32: "
+        "the blockwise MLA path builds [H, S, kv_block] f32 scores, 8.6 GB "
+        "a block at 128 heads and 32k, beside 32 GB of weights",
+        "prefill against decode in f32 on one full-width layer, after the "
+        "bf16 params are freed: the f32 copy of 4 layers is 64 GB"],
+    "jamba-v0.1-52b": [
+        "depth 8 of 32 layers: one Jamba block (7 mamba, 1 attention, 4 "
+        "MoE layers), 25.5 GB of the model's 104 GB",
+        "prefill_32k at batch 1, not 32",
+        "prefill against decode in f32 on the same block from the same "
+        "seed, after the bf16 params are freed (51 GB)"],
+    "rwkv6-1.6b": ["prefill_32k at batch 1, not 32"],
+}
+
+
+def serve_cell_config(arch: str, layers: int = None):
+    """``arch``'s published config cut to ``layers`` (default: its
+    cell's depth)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or
+                               SERVE_CELLS[arch]["layers"])
+
+
+def drop_free(cfg):
+    """``cfg`` with a capacity factor of its experts' count, which drops
+    no choice: a prefill chunk and a one-token step then route alike."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def expert_bytes(params) -> int:
+    """Bytes of one expert of one layer (its gate, up and down)."""
+    layers = params["layers"]
+    for slot in ([layers] if isinstance(layers, dict) else layers):
+        if "router" in slot["mlp"]:
+            return sum(slot["mlp"][k][0, 0].numel()
+                       * slot["mlp"][k].element_size()
+                       for k in ("w_gate", "w_up", "w_down"))
+    return 0
+
+
+def family_decode(phase: str, cfg, model, params, shape, gen,
+                  reduced: dict) -> None:
+    """One decode step of ``shape`` (``decode_32k`` or ``long_500k``) at
+    its last position, against a cache of its length filled from a seeded
+    generator (the recurrent states too): 1 warm-up, which records the
+    routing, and ``DECODE_TIMED`` timed, then ``DECODE_TIMED`` at position
+    0.  Every cache tensor is written in place: the position's rows and
+    the states change, their storage does not.  Bound: the cache and the
+    params read once at the memory rate, of the experts only those the
+    step's tokens reach."""
+    import torch
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    dev = model.device
+    step = build_step(cfg, shape, make_host_mesh(device=dev))
+    cache = model.init_cache(shape.global_batch, shape.seq_len)
+    for t in tree_leaves(cache):
+        t.normal_(generator=gen)
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    tok = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    pos = shape.seq_len - 1
+    ptrs = [t.data_ptr() for t in tree_leaves(cache)]
+    before = [t[:, :, pos].clone() if k in POSITIONAL else t.clone()
+              for k, t in cache_entries(cache)]
+    launches0 = ops_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with RouteHold() as hold:
+        t0 = time.perf_counter()
+        logits, cache = step.fn(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        secs = [time.perf_counter() - t0]
+    reached = [int(torch.unique(idx).numel()) for idx in hold.calls]
+    for p in [pos] * DECODE_TIMED + [0] * DECODE_TIMED:
+        t0 = time.perf_counter()
+        logits, cache = step.fn(params, cache, tok, p)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_last = sum(secs[1:1 + DECODE_TIMED]) / DECODE_TIMED * 1e3
+    ms_first = sum(secs[1 + DECODE_TIMED:]) / DECODE_TIMED * 1e3
+    unreached = sum(cfg.moe.n_experts - r for r in reached) * \
+        expert_bytes(params) if cfg.moe is not None else 0
+    bound = (cache_bytes + param_bytes - unreached) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": phase, "part": "decode", "shape": shape.name,
+          "n_layers": cfg.n_layers, **reduced, "seq_len": shape.seq_len,
+          "batch": shape.global_batch, "pos": pos, "cache_bytes": cache_bytes,
+          "param_bytes": param_bytes, "experts_reached": reached,
+          "unreached_expert_bytes": unreached, "warmup_ms": secs[0] * 1e3,
+          "step_ms": [x * 1e3 for x in secs[1:1 + DECODE_TIMED]],
+          "ms_per_step": ms_last,
+          "step_ms_pos0": [x * 1e3 for x in secs[1 + DECODE_TIMED:]],
+          "ms_per_step_pos0": ms_first, "bound_ms": bound,
+          "bound_share": bound / ms_last,
+          "tokens_per_s": shape.global_batch / ms_last * 1e3,
+          "max_memory_allocated": peak})
+    check([t.data_ptr() for t in tree_leaves(cache)] == ptrs,
+          f"{phase}: decode did not write its cache in place")
+    after = [t[:, :, pos] if k in POSITIONAL else t
+             for k, t in cache_entries(cache)]
+    check(all(not torch.equal(a, b) for a, b in zip(before, after)),
+          f"{phase}: a cache entry was not written")
+    check(bool(torch.isfinite(logits).all()) and logits.shape
+          == (shape.global_batch, cfg.padded_vocab), f"{phase}: decode logits")
+    check(ops_launches() == launches0, f"{phase}: decode launched kernels")
+
+
+def phase_family_serve(arch: str) -> dict:
+    """Cells M, N, O: ``arch`` at its published widths in bf16 (the depth
+    of ``SERVE_CELLS``), seeded random weights.
+
+    * prefill: ``prefill_cell`` of the cell's tokens at batch 1 under
+      "pallas" (jamba: one flash launch a prefill, its attention layer;
+      deepseek-v2's MLA takes the blockwise loop, dk != dv, and rwkv6 has
+      no attention: no launch, and the "blockwise" prefill bit-equal),
+      then ``AFTER_PREFILL_STEPS`` decode steps from it;
+    * decode: ``family_decode`` at the cell's decode shape;
+    * rwkv6: the serve loop, as cell D's;
+    * prefill against teacher-forced decode (the recurrent states after the
+      prompt count as the cache), bf16 within ``cache_limit``, f32 within
+      ``F32_REL_TOL`` with top-1 equal on 3 of 4 rows; a config with
+      experts at a drop-free capacity with the decode's routing held, as
+      ``moe_serve``.  The f32 check runs on ``f32_layers`` full-width
+      layers after the bf16 params are freed.
+
+    Returns the launches of the timed prefills (zeroed before them; what
+    follows launches nothing)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import build_model
+
+    cell = SERVE_CELLS[arch]
+    phase = cell["phase"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = serve_cell_config(arch)
+    reduced = {"layers_published": get_config(arch).n_layers,
+               "reduced": SERVE_CELL_CUTS[arch]}
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, cell["prefill"]), generator=gen,
+                           device=dev, dtype=torch.int32)
+    logits, cache, launches = prefill_cell(phase, cfg, model, params,
+                                           {"tokens": tokens}, reduced)
+    decode_after_prefill(phase, model, params, logits, cache,
+                         AFTER_PREFILL_STEPS, cell["prefill"])
+    del logits, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shape = dataclasses.replace(SHAPES[cell["decode"]],
+                                global_batch=cell["batch"])
+    family_decode(phase, cfg, model, params, shape, gen, reduced)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cell["serve_loop"]:
+        serve_loop(phase, cfg, model, params, ops_launches())
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    ).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        c = cfg
+        if dtype == torch.float32:
+            del params, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            c = serve_cell_config(arch, cell["f32_layers"])
+        m = build_model(drop_free(c), dtype=dtype, device=dev)
+        p = params if dtype == torch.bfloat16 else m.init(
+            torch.Generator(device=dev).manual_seed(0))
+        limit = cache_limit(cfg) if dtype == torch.bfloat16 else F32_REL_TOL
+        with RouteHold() as hold:
+            dec = decode_built(m, p, prompts, SERVE_PROMPT + SERVE_NEW)
+            if c.moe is not None:
+                hold.replay(hold.decode_plan(moe_layers(c)))
+            r = prefill_vs_decode(m, p, prompts, *dec, row_limit=limit)
+        name = str(dtype).removeprefix("torch.")
+        emit({"phase": phase, "part": "prefill_vs_decode", "dtype": name,
+              "n_layers": c.n_layers, **reduced, "limit": limit,
+              "routing": "held" if c.moe is not None else None,
+              "batch": SERVE_BATCH, "positions": SERVE_PROMPT, **r})
+        check(all(v <= limit for v in r["cache_rel_err_max"].values()),
+              f"{phase} {name}: prefill and decode caches differ: {r}")
+        if dtype == torch.float32:
+            check(r["logits_rel_err"] <= F32_REL_TOL,
+                  f"{phase}: f32 prefill and decode logits differ")
+            check(r["top1_equal_rows"] >= SERVE_BATCH - 1,
+                  f"{phase}: prefill and decode top-1 agree on "
+                  f"{r['top1_equal_rows']} of {SERVE_BATCH} rows")
+        del m, p, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _family_run(arch: str, device: str, init_np):
@@ -3235,17 +3592,19 @@ def _family_run(arch: str, device: str, init_np):
         steps.append(lg.cpu())
     return {"total": float(total), "loss": float(m["loss"]),
             "aux_loss": float(m["aux_loss"]), "logits": logits.cpu(),
-            "cache_k": cache["layers"]["k"].cpu(),
+            "cache": [t.cpu() for _, t in cache_entries(cache)],
             "decode": torch.stack(steps)}
 
 
 def phase_reduced_family_parity() -> None:
-    """The reduced qwen2-7b, phi-3-vision (with patch embeddings) and
-    granite-moe in f32, card against CPU from the same params: loss and aux
-    loss within rtol 1e-4, prefill logits and cache and 4 decode steps'
-    logits within atol 1e-4 / rtol 1e-4 (f32 sums in other orders, as
-    ``reduced_serve_parity``); the card's prefill launches the flash kernel
-    once a layer."""
+    """The reduced qwen2-7b, phi-3-vision (with patch embeddings),
+    granite-moe, deepseek-v2 (MLA), jamba (the hybrid, 16 layers) and
+    rwkv6 in f32, card against CPU from the same params: loss and aux loss
+    within rtol 1e-4, prefill logits, every cache entry and 4 decode
+    steps' logits within atol 1e-4 / rtol 1e-4 (f32 sums in other orders,
+    as ``reduced_serve_parity``); the card's prefill launches the flash
+    kernel once a layer of kind "a" (jamba: 2 of 16; deepseek and rwkv6:
+    none)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import to_numpy
@@ -3258,23 +3617,33 @@ def phase_reduced_family_parity() -> None:
                         .init(torch.Generator().manual_seed(0)))
         before = ops.flash_attention_op.launches
         card = _family_run(arch, "cuda", init)
-        check(ops.flash_attention_op.launches == before + cfg.n_layers,
-              f"{arch}: the card's prefill did not launch the flash kernel "
-              "once a layer")
+        flash = ops.flash_attention_op.launches - before
+        check(flash == attention_layers(cfg),
+              f"{arch}: the card's prefill launched the flash kernel {flash} "
+              f"times for {attention_layers(cfg)} attention layers")
         cpu = _family_run(arch, "cpu", init)
         errs = {k: abs(card[k] - cpu[k]) for k in ("total", "loss",
                                                    "aux_loss")}
-        for k in ("logits", "cache_k", "decode"):
+        for k in ("logits", "decode"):
             errs[k] = float((card[k] - cpu[k]).abs().max())
+        errs["cache"] = max(float((a - b).abs().max())
+                            for a, b in zip(card["cache"], cpu["cache"]))
         emit({"phase": "reduced_family_parity", "arch": arch,
+              "layer_pattern": cfg.layer_pattern, "n_layers": cfg.n_layers,
               "moe": cfg.moe is not None, "frontend": cfg.frontend,
+              "flash_launches": flash, "cache_entries": len(card["cache"]),
               "loss_card": card["loss"], "aux_loss_card": card["aux_loss"],
               "max_abs_err": errs})
         for k in ("total", "loss", "aux_loss"):
             check(errs[k] <= 1e-4 * abs(cpu[k]) + 1e-6,
                   f"{arch} {k}: card {card[k]} vs CPU {cpu[k]}")
-        for k in ("logits", "cache_k", "decode"):
-            check(torch.allclose(card[k], cpu[k], rtol=1e-4, atol=1e-4),
+        pairs = [("logits", card["logits"], cpu["logits"]),
+                 ("decode", card["decode"], cpu["decode"]),
+                 *(("cache", a, b) for a, b in zip(card["cache"],
+                                                   cpu["cache"]))]
+        for k, a, b in pairs:
+            check(a.shape == b.shape
+                  and torch.allclose(a, b, rtol=1e-4, atol=1e-4),
                   f"{arch} {k}: card and CPU differ by {errs[k]}")
         check((card["aux_loss"] > 0) == (cfg.moe is not None),
               f"{arch}: aux loss {card['aux_loss']}")
@@ -3315,6 +3684,8 @@ def main() -> int:
     moe_serve_launches = phase_moe_serve()
     vlm_launches = phase_vlm_serve()
     dense_7b_launches = phase_qwen2_7b_serve()
+    family_launches = {SERVE_CELLS[a]["phase"]: phase_family_serve(a)
+                       for a in SERVE_CELLS}
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3325,7 +3696,7 @@ def main() -> int:
                "pod_async": pod_launches, "elastic": elastic_launches,
                "scenario": scenario_launches, "moe_train": moe_train_launches,
                "moe_serve": moe_serve_launches, "vlm_serve": vlm_launches,
-               "qwen2_7b_serve": dense_7b_launches}
+               "qwen2_7b_serve": dense_7b_launches, **family_launches}
     total = {k: sum(p.get(k, 0) for p in by_path.values()) for k in KERNELS}
     for k, n in total.items():
         check(n > 0, f"{k} was not launched on the main paths")

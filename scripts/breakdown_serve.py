@@ -3,6 +3,7 @@
 card.
 
     python3 scripts/breakdown_serve.py [TRACE_PATH]
+    python3 scripts/breakdown_serve.py --arch ARCH [TRACE_PATH]
 
 Builds the serving steps of ``chip_smoke.py``'s ``serve`` phase (full-width
 Qwen2-0.5B in bf16 from a seeded init; ``prefill_32k`` at seq 32768 with
@@ -22,6 +23,12 @@ seeded generator, at pos 32767) and prints one JSON line per part:
    flash kernel's device time and share, and the top kernels.  The Chrome
    trace of the prefill goes to ``TRACE_PATH`` (default
    ``build/serve_prefill_trace.json.gz``).
+
+With ``--arch`` one of ``chip_smoke.SERVE_CELLS`` (deepseek-v2-236b,
+jamba-v0.1-52b, rwkv6-1.6b) it profiles that cell instead, as
+``phase_family_serve`` builds it (its depth, its prefill length at batch
+1, its decode shape and batch at the last position): the ``profile``
+lines only, each with the count of kernels the step launched.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -151,12 +158,62 @@ def profiled(fn, dev):
     flash_ms = sum(dev_us(e) for e in flash) * 1e-3
     return prof, {"wall_s": wall, "device_s": total_us * 1e-6,
                   "device_busy_share": total_us * 1e-6 / wall,
+                  "kernel_launches": sum(e.count for e in events),
                   "flash_kernel": {"calls": sum(e.count for e in flash),
                                    "device_ms": flash_ms,
                                    "share_of_wall": flash_ms * 1e-3 / wall},
                   "top": [{"name": e.key[:100], "calls": e.count,
                            "device_ms": dev_us(e) * 1e-3}
                           for e in events[:12]]}
+
+
+def profile_cell(arch: str, trace_path: Path, dev) -> int:
+    """``profiled`` on one prefill and one decode step of ``arch``'s serve
+    cell; the prefill's Chrome trace goes to ``trace_path``."""
+    import torch
+    import torch.distributed
+    import chip_smoke as cs
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.models import attention, build_model
+    from repro_torch.tree import tree_leaves
+
+    cell = cs.SERVE_CELLS[arch]
+    cfg = cs.serve_cell_config(arch)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    mesh = make_host_mesh(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    attention.set_attention_impl("pallas")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=cell["prefill"],
+                                global_batch=cs.PREFILL_BATCH)
+    prefill = build_step(cfg, shape, mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (cs.PREFILL_BATCH,
+                                               shape.seq_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prof, res = profiled(lambda: prefill.fn(params, {"tokens": tokens}), dev)
+    prof.export_chrome_trace(str(trace_path))
+    cs.emit({"part": "profile", "arch": arch, "n_layers": cfg.n_layers,
+             "step": "prefill", "seq_len": shape.seq_len, **res})
+    del prefill, tokens, prof
+    torch.cuda.empty_cache()
+
+    shape = dataclasses.replace(SHAPES[cell["decode"]],
+                                global_batch=cell["batch"])
+    decode = build_step(cfg, shape, mesh)
+    cache = model.init_cache(shape.global_batch, shape.seq_len)
+    for t in tree_leaves(cache):
+        t.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    pos = shape.seq_len - 1
+    _, res = profiled(lambda: decode.fn(params, cache, tok, pos), dev)
+    cs.emit({"part": "profile", "arch": arch, "n_layers": cfg.n_layers,
+             "step": "decode", "shape": shape.name,
+             "batch": shape.global_batch, "pos": pos, **res})
+    attention.set_attention_impl("blockwise")
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -173,8 +230,17 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    args = sys.argv[1:]
+    arch = None
+    if args[:1] == ["--arch"]:
+        arch, args = args[1], args[2:]
+    trace_path = Path(args[0]) if args else \
+        ROOT / "build" / "serve_prefill_trace.json.gz"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
     cs.phase_device()
     cs.phase_build()     # so no step below pays for nvcc
+    if arch is not None:
+        return profile_cell(arch, trace_path, dev)
 
     cfg = get_config(cs.FULL_ARCH)
     model = build_model(cfg, dtype=torch.bfloat16, device=dev)
@@ -204,9 +270,6 @@ def main() -> int:
              "step_s": statistics.median(whole[1:]),
              "first_step_s": whole[0]})
     prof, res = profiled(lambda: prefill.fn(params, {"tokens": tokens}), dev)
-    trace_path = Path(sys.argv[1]) if len(sys.argv) > 1 else \
-        ROOT / "build" / "serve_prefill_trace.json.gz"
-    trace_path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace_path))
     cs.emit({"part": "profile", "step": "prefill", **res})
     del prefill, tokens, prof

@@ -6,7 +6,9 @@ phase, on one card.
 
 Two checks of that phase hold one bf16 path through the full-width
 Qwen2-0.5B (24 layers, random weights; ``--arch`` names another config,
-as ``moe_serve`` runs granite-moe-1b-a400m and ``qwen2_7b_serve`` qwen2-7b)
+as ``moe_serve`` runs granite-moe-1b-a400m, ``qwen2_7b_serve`` qwen2-7b
+and cells M-O deepseek-v2-236b, jamba-v0.1-52b and rwkv6-1.6b at their
+cells' depth, prefill length and f32 depth, ``chip_smoke.SERVE_CELLS``)
 against another:
 
 * ``prefill_32k``: the 32k prefill (batch 1) under "pallas" against the
@@ -30,6 +32,24 @@ code under test is not changed):
 * ``fp8_qkv``: q, k and v rounded through float8 e4m3 before the kernel,
   a lower-precision control;
 * ``scale_1pct``: the softmax scale 1% too large.
+
+Layers with no attention mask get faults of their own, planted the same
+way in the prefill only (``chip_smoke.py``'s cells M-O):
+
+* ``conv_late`` (mamba): the causal conv's window one step late, each
+  output reading the inputs one position earlier;
+* ``fp8_scan`` (mamba): the scan's inputs x, B and C rounded through
+  float8 e4m3 (the decays dt and A left alone);
+* ``shift_late`` (rwkv): the token shift one step late, x[t-2] for
+  x[t-1], in the time and the channel mix;
+* ``fp8_wkv`` (rwkv): r, k and v rounded through float8 before the WKV
+  chunks (the decays left alone);
+* ``fp8_ckv`` (MLA): the latent ckv rounded through float8, in the
+  attention and in the cache.
+
+A config without an attention layer launches no kernel: its "pallas" and
+"blockwise" prefills run the same code, so only the prefill-vs-decode
+check is read.
 
 Each reading also holds ``chip_smoke.cache_row_stats`` of k and v at the
 check's limit: the share of cache rows (layer, position) above it and the
@@ -55,7 +75,9 @@ non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import sys
 from pathlib import Path
 
@@ -63,11 +85,19 @@ ROOT = Path(__file__).resolve().parent.parent
 N_SEEDS = 6
 
 
-def faults():
-    """{name: replacement of ``flash_attention_op`` in the attention
-    module}, each calling the real op."""
+def fp8(t):
+    """``t`` rounded through float8 e4m3 and back."""
+    import torch
+    return t.clamp(-448, 448).to(torch.float8_e4m3fn).to(t.dtype)
+
+
+def faults(cfg):
+    """{name: (module, attribute, replacement)} of the faults that apply
+    to ``cfg``'s layer kinds, each replacement calling the real function;
+    ``sound`` replaces nothing."""
     import torch
     from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.models import attention, mamba, rwkv
 
     def leak_next(q, k, v, **kw):
         q1 = torch.cat([q[:, :, :1], q], 2)
@@ -82,8 +112,57 @@ def faults():
     def scale_1pct(q, k, v, *, scale, **kw):
         return flash_attention_op(q, k, v, scale=scale * 1.01, **kw)
 
-    return {"sound": flash_attention_op, "leak_next": leak_next,
-            "fp8_qkv": fp8_qkv, "scale_1pct": scale_1pct}
+    conv, scan = mamba._causal_conv, mamba.mamba_scan
+    shift, wkv, latent = rwkv._token_shift, rwkv._wkv_chunk, \
+        attention._mla_latent
+
+    def conv_late(x, w, b, history):
+        return conv(torch.cat([history[:, -1:].to(x.dtype), x[:, :-1]], 1),
+                    w, b, torch.cat([torch.zeros_like(history[:, :1]),
+                                     history[:, :-1]], 1))
+
+    def fp8_scan(x_in, dt, a_log, b_ssm, c_ssm, *args, **kw):
+        return scan(fp8(x_in), dt, a_log, fp8(b_ssm), fp8(c_ssm), *args,
+                    **kw)
+
+    def fp8_wkv(r, k, v, *args):
+        return wkv(fp8(r), fp8(k), fp8(v), *args)
+
+    def fp8_ckv(*args):
+        ckv, krope = latent(*args)
+        return fp8(ckv), krope
+
+    kinds = set(cfg.layer_kinds)
+    out = {"sound": None}
+    if "a" in kinds:
+        out.update((name, (attention, "flash_attention_op", fn)) for name, fn
+                   in (("leak_next", leak_next), ("fp8_qkv", fp8_qkv),
+                       ("scale_1pct", scale_1pct)))
+    if "m" in kinds:
+        out.update(conv_late=(mamba, "_causal_conv", conv_late),
+                   fp8_scan=(mamba, "mamba_scan", fp8_scan))
+    if "r" in kinds:
+        out.update(shift_late=(rwkv, "_token_shift",
+                               lambda x, prev: shift(shift(x, prev), prev)),
+                   fp8_wkv=(rwkv, "_wkv_chunk", fp8_wkv))
+    if "l" in kinds:
+        out["fp8_ckv"] = (attention, "_mla_latent", fp8_ckv)
+    return out
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """``fault`` (``faults``' value) in place while the block runs."""
+    if fault is None:
+        yield
+        return
+    module, name, fn = fault
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def main() -> int:
@@ -112,29 +191,36 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cs.phase_device()
     cs.phase_build()
-    cfg = get_config(args.arch)
-    # prefill against decode at a drop-free capacity, as moe_serve runs it
-    cfg_dec = cfg if cfg.moe is None else dataclasses.replace(
-        cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    cell = cs.SERVE_CELLS.get(args.arch)
+    cfg = cs.serve_cell_config(args.arch) if cell else get_config(args.arch)
+    # prefill against decode at a drop-free capacity, as moe_serve runs it;
+    # a cell's f32 model at its own depth, from the seed (bf16 freed first)
+    cfg_dec = cs.drop_free(cfg)
+    cfg_f32 = cs.drop_free(cs.serve_cell_config(
+        args.arch, cell["f32_layers"])) if cell else cfg_dec
     mesh = make_host_mesh(device=dev)
     vision = cfg.frontend == "vision"
     shape = dataclasses.replace(SHAPES["prefill_32k"],
                                 global_batch=cs.PREFILL_BATCH)
     if vision:
         shape = dataclasses.replace(shape, seq_len=cs.VLM_SEQ)
+    if cell:
+        shape = dataclasses.replace(shape, seq_len=cell["prefill"])
     prefill = build_step(cfg, shape, mesh)
+    # with no attention layer the two prefills run the same code
+    read_prefill = cs.attention_layers(cfg) > 0
     check_pre = f"prefill_{shape.seq_len // 1024}k"
     limit_pre = cs.prefill_limit(cfg)
+    limit_bf16 = cs.cache_limit(cfg)
     max_len = cs.SERVE_PROMPT + cs.SERVE_NEW
-    planted = faults()
+    planted_faults = faults(cfg)
     gated = {}                      # (check, dtype, fault) -> readings
     shares = {}                     # the same -> largest share of rows
 
     def record(check, dtype, fault, seed, value, reading, rows):
         gated.setdefault((check, dtype, fault), []).append(value)
         shares.setdefault((check, dtype, fault), []).append(
-            max(r["rows_over"] for r in rows.values()))
+            max((r["rows_over"] for r in rows.values()), default=0.0))
         cs.emit({"part": "reading", "arch": cfg.name, "routing":
                  "held" if held else "free", "check": check,
                  "dtype": dtype, "fault": fault, "seed": seed,
@@ -142,7 +228,7 @@ def main() -> int:
 
     models = {torch.bfloat16: build_model(cfg_dec, dtype=torch.bfloat16,
                                           device=dev),
-              torch.float32: build_model(cfg_dec, dtype=torch.float32,
+              torch.float32: build_model(cfg_f32, dtype=torch.float32,
                                          device=dev)}
     # --free-routing: a config with experts routes each run afresh
     held = cfg.moe is not None and not args.free_routing
@@ -168,15 +254,16 @@ def main() -> int:
                         5 + seed), device=dev, dtype=torch.int32)}
             attention.set_attention_impl("blockwise")
             hold.record()
-            ref = prefill.fn(params, batch)
+            ref = prefill.fn(params, batch) if read_prefill else None
             calls = hold.calls
             attention.set_attention_impl("pallas")
-            for fault, op in planted.items():
-                attention.flash_attention_op = op
+            for fault, op in planted_faults.items():
+                if not read_prefill:
+                    break
                 if held:
                     hold.replay(calls)
-                out = prefill.fn(params, batch)
-                attention.flash_attention_op = planted["sound"]
+                with planted(op):
+                    out = prefill.fn(params, batch)
                 rel = cs.prefill_rel(*out, *ref)
                 rows = cs.cache_row_stats(out[1], ref[1], limit_pre)
                 del out
@@ -194,22 +281,29 @@ def main() -> int:
                 rng.integers(0, cfg.vocab_size, cs.SERVE_PROMPT)
                 .astype(np.int32) for _ in range(cs.SERVE_BATCH)])).to(dev)
             for dtype, m in models.items():
-                # an f32 router stays f32 in the bf16 model
-                p = tree_map(lambda t: t if t.dtype == torch.float32
-                             else t.to(dtype), params)
+                if cell and dtype == torch.float32:
+                    # the cell's f32 check: its own depth, from the seed
+                    del params
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    params = p = m.init(
+                        torch.Generator(device=dev).manual_seed(seed))
+                else:
+                    # an f32 router stays f32 in the bf16 model
+                    p = tree_map(lambda t: t if t.dtype == torch.float32
+                                 else t.to(dtype), params)
                 hold.record()
                 dec = cs.decode_built(m, p, prompts, max_len)
-                plan = hold.decode_plan(cfg.n_layers) if held else None
-                limit = ((cs.BF16_CACHE_TOL if cfg.moe is None
-                          else cs.MOE_CACHE_TOL)
-                         if dtype == torch.bfloat16 else cs.F32_REL_TOL)
-                for fault, op in planted.items():
-                    attention.flash_attention_op = op
+                plan = hold.decode_plan(cs.moe_layers(m.config)) \
+                    if held else None
+                limit = (limit_bf16 if dtype == torch.bfloat16
+                         else cs.F32_REL_TOL)
+                for fault, op in planted_faults.items():
                     if held:
                         hold.replay(plan)
-                    r = cs.prefill_vs_decode(m, p, prompts, *dec,
-                                             row_limit=limit)
-                    attention.flash_attention_op = planted["sound"]
+                    with planted(op):
+                        r = cs.prefill_vs_decode(m, p, prompts, *dec,
+                                                 row_limit=limit)
                     rows = r.pop("rows")
                     record("prefill_vs_decode",
                            str(dtype).removeprefix("torch."), fault, seed,
@@ -229,8 +323,7 @@ def main() -> int:
              "routing": "held" if held else "free",
              "gated": summary, "rows_over_limit": row_summary,
              "limits": {f"{check_pre} bfloat16": limit_pre,
-                        "prefill_vs_decode bfloat16": cs.BF16_CACHE_TOL
-                        if cfg.moe is None else cs.MOE_CACHE_TOL,
+                        "prefill_vs_decode bfloat16": limit_bf16,
                         "prefill_vs_decode float32": cs.F32_REL_TOL}})
     torch.distributed.destroy_process_group()
     return 0

@@ -293,6 +293,9 @@ def list_configs() -> Sequence[str]:
 
 
 def _load_all() -> None:
-    # import side-effect registers each architecture the port carries so far
-    from . import (granite_moe_1b_a400m, minicpm_2b,  # noqa
-                   phi_3_vision_4_2b, qwen2_0_5b, qwen2_7b, stablelm_1_6b)
+    # import side-effect registers each architecture (whisper-tiny's
+    # encoder-decoder is not ported yet: ``build_model`` refuses it)
+    from . import (deepseek_v2_236b, granite_moe_1b_a400m,  # noqa
+                   jamba_v0_1_52b, minicpm_2b, phi_3_vision_4_2b,
+                   qwen2_0_5b, qwen2_7b, rwkv6_1_6b, stablelm_1_6b,
+                   whisper_tiny)

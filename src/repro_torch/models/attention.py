@@ -17,6 +17,11 @@ in the reference.  Decode (``decode_attention``, ``gqa_decode``,
 ``gqa_decode_q8``) is plain PyTorch, as it is plain jnp in the reference,
 and writes the new position into the cache tensors in place (the reference
 donates the cache to ``jit`` for the same effect).
+
+DeepSeek-V2's latent attention (``init_mla``, ``mla_forward``,
+``mla_decode``) caches the compressed latent ``{ckv, krope}`` instead of
+k and v: its prefill expands it into per-head keys and values for
+``blockwise_attention``, its decode attends in the latent space.
 """
 
 from __future__ import annotations
@@ -345,3 +350,133 @@ def gqa_decode_q8(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = torch.matmul(probs_v, v_q.permute(0, 2, 1, 3).to(torch.float32))
     out = out.reshape(b, 1, h * v_q.shape[-1]).to(x.dtype) @ p["wo"]
     return out, {"k_q": k_q, "v_q": v_q, "k_s": k_s, "v_s": v_s}
+
+
+# --------------------------------------------------------------------------- #
+# DeepSeek-V2 multi-head latent attention (MLA)
+# --------------------------------------------------------------------------- #
+# f32 elements of one widened slice of the latent cache in ``mla_decode``'s
+# score product: 1 GB, a few slices at decode_32k's batch of 128
+_MLA_SCORE_ELEMS = 1 << 28
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, n: int, *,
+             dtype: torch.dtype, device: torch.device) -> Params:
+    """``n`` stacked layers' MLA params: the low-rank q path, the latent
+    ``kv_down`` (rank R plus the shared rope key), ``k_up``/``v_up`` out of
+    the latent and ``wo``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "q_down": dense_init(gen, (n, d, m.q_lora_rank), **kw),
+        "q_up": dense_init(gen, (n, m.q_lora_rank, h * qk), **kw),
+        "kv_down": dense_init(gen, (n, d, m.kv_lora_rank
+                                    + m.qk_rope_head_dim), **kw),
+        "k_up": dense_init(gen, (n, m.kv_lora_rank,
+                                 h * m.qk_nope_head_dim), **kw),
+        "v_up": dense_init(gen, (n, m.kv_lora_rank, h * m.v_head_dim), **kw),
+        "wo": dense_init(gen, (n, h * m.v_head_dim, d),
+                         scale=1.0 / math.sqrt(2 * cfg.n_layers), **kw),
+    }
+
+
+def _mla_q(p: Params, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] after rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = ((x @ p["q_down"]) @ p["q_up"]).reshape(
+        b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the cache holds for x [B, S, d]: (ckv [B, S, R], krope [B, S,
+    rope] after rope), the latent unnormalized, as in the reference."""
+    ckv, krope = torch.split(x @ p["kv_down"], [
+        cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim], dim=-1)
+    return ckv, apply_rope(krope[:, :, None, :], pos, cfg.rope_theta)[:, :,
+                                                                       0]
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim
+                           + cfg.mla.qk_rope_head_dim)
+
+
+def mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                kv_block: int = 512
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Train/prefill MLA over [B, S, d]: the latent expanded into per-head
+    keys (nope part from ``k_up``, the one rope key broadcast to every
+    head) and values, then ``blockwise_attention``.  With head dims 192
+    and 128 (dk != dv) that is the blockwise loop under either impl, as
+    in the reference.  Returns (out, the cache contribution {ckv, krope})."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    pos = torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)
+    ckv, krope = _mla_latent(p, x, pos, cfg)
+    k_nope = (ckv @ p["k_up"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (ckv @ p["v_up"]).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim).to(k_nope.dtype)], dim=-1)
+    out = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                              causal=True, kv_block=kv_block,
+                              scale=_mla_scale(cfg))
+    return out.reshape(b, s, -1) @ p["wo"], {"ckv": ckv, "krope": krope}
+
+
+def _f32_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """q [B, H, R] against c [B, S, R] -> [B, H, S] f32 of the stored
+    values (``preferred_element_type=f32``), c widened to f32 a slice of
+    positions at a time so the widened copy stays small."""
+    b, s, r = c.shape
+    qf = q.to(torch.float32)
+    out = torch.empty((b, q.shape[1], s), dtype=torch.float32,
+                      device=c.device)
+    step = max(1, _MLA_SCORE_ELEMS // (b * r))
+    for i in range(0, s, step):
+        out[..., i:i + step] = torch.matmul(
+            qf, c[:, i:i + step].to(torch.float32).transpose(1, 2))
+    return out
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: int, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-form MLA decode against the latent cache {ckv: [B, S, R],
+    krope: [B, S, rope]}, position ``pos`` written in place.  q is
+    absorbed through ``k_up`` (a product in the model's dtype), the scores
+    are f32 from the stored latent, the probabilities go back to the
+    cache's dtype for the product with ``ckv``, and the latent output is
+    expanded through ``v_up``: the cache stays compressed."""
+    m = cfg.mla
+    b = x.shape[0]
+    h, r = cfg.n_heads, m.kv_lora_rank
+    posv = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, posv, cfg)
+    ckv_new, krope_new = _mla_latent(p, x, posv, cfg)
+    cache["ckv"][:, pos] = ckv_new[:, 0]
+    cache["krope"][:, pos] = krope_new[:, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+
+    k_up = p["k_up"].reshape(r, h, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], k_up)
+    scores = _f32_scores(q_eff, ckv)
+    scores += _f32_scores(q_rope[:, 0], krope)
+    scores *= _mla_scale(cfg)
+    valid = torch.arange(ckv.shape[1], device=x.device) < pos + 1
+    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
+    del scores
+    out_latent = torch.matmul(probs.to(ckv.dtype), ckv)       # [B, H, R]
+    out = torch.einsum("bhr,rhd->bhd", out_latent,
+                       p["v_up"].reshape(r, h, m.v_head_dim))
+    return out.reshape(b, 1, h * m.v_head_dim) @ p["wo"], {"ckv": ckv,
+                                                           "krope": krope}

@@ -2,10 +2,13 @@
 package's.
 
 * Leaf names: the port writes ``jax.tree_util``'s key-path names, letter
-  for letter (``layers/mix/wq``, ``.history/...``, ``.step``, ``.mu/...``).
+  for letter (``layers/mix/wq``, ``.history/...``, ``.step``, ``.mu/...``;
+  jamba's tuple of slots as ``layers/3/mix/wq``).
 * Files cross both ways: a ``Checkpointer`` directory written by the
   reference restores in the port bit for bit (bf16 via f32, ints as
-  ints), and one written by the port restores in the reference.
+  ints), and one written by the port restores in the reference; for the
+  reduced qwen2-0.5b and the reduced jamba-v0.1-52b (a tuple of 8 slots
+  stacked over 2 groups, f32 leaves beside bf16 ones).
 * ``Checkpointer``'s publish, ``keep`` garbage collection and
   ``latest_step``; the replica's syncs, step, divergence bound, byte
   counts and ``recover()`` equal to the reference's (pure bookkeeping:
@@ -51,8 +54,9 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 @pytest.fixture(scope="module")
 def jparams():
-    cfg = j_get_config("qwen2-0.5b").reduced()
-    return j_build_model(cfg).init(jax.random.key(0))   # bf16, as the CLI
+    """[(arch, the reference's params)]: bf16, as the CLI inits them."""
+    return [(arch, jax.jit(j_build_model(j_get_config(arch).reduced()).init)(
+        jax.random.key(0))) for arch in ("qwen2-0.5b", "jamba-v0.1-52b")]
 
 
 def _torch_tree(jtree):
@@ -68,22 +72,26 @@ def _np(x):
 
 @pytest.mark.parametrize("which", ["params", "momentum", "adamw"])
 def test_leaf_names_are_the_references(jparams, which):
-    tparams = _torch_tree(jparams)
-    jtree, ttree = {
-        "params": (jparams, tparams),
-        "momentum": (j_momentum_init(jparams), momentum_sgd_init(tparams)),
-        "adamw": (j_adamw_init(jparams), adamw_init(tparams)),
-    }[which]
-    jn = [n for n, _ in j_names(jtree)]
-    tn = [n for n, _ in _flatten_with_names(ttree)]
-    assert tn == jn
-    if which == "momentum":
-        assert tn[0] == ".history/embeds/embed"
-    if which == "adamw":
-        assert tn[0] == ".step" and tn[1].startswith(".mu/")
-    for (_, a), (_, b) in zip(_flatten_with_names(ttree), j_names(jtree)):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        np.testing.assert_array_equal(a, b)
+    for arch, jp in jparams:
+        tparams = _torch_tree(jp)
+        jtree, ttree = {
+            "params": (jp, tparams),
+            "momentum": (j_momentum_init(jp), momentum_sgd_init(tparams)),
+            "adamw": (j_adamw_init(jp), adamw_init(tparams)),
+        }[which]
+        jn = [n for n, _ in j_names(jtree)]
+        tn = [n for n, _ in _flatten_with_names(ttree)]
+        assert tn == jn, arch
+        if which == "momentum":
+            assert tn[0] == ".history/embeds/embed"
+        if which == "adamw":
+            assert tn[0] == ".step" and tn[1].startswith(".mu/")
+        if arch.startswith("jamba"):
+            assert any(n.endswith("layers/3/mix/wq") for n in tn)
+        for (_, a), (_, b) in zip(_flatten_with_names(ttree),
+                                  j_names(jtree)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
 
 
 def test_tree_walks_like_jax():
@@ -116,48 +124,53 @@ def _assert_trees_equal(ttree, jtree):
 
 
 def test_jax_checkpoint_restores_in_the_port(jparams, tmp_path):
-    rng = np.random.default_rng(0)
-    jopt = JMomentumState(history=jax.tree.map(
-        lambda p: jnp.asarray(rng.standard_normal(p.shape), jnp.float32),
-        jparams))
-    jadam = j_adamw_init(jparams)._replace(step=jnp.asarray(7, jnp.int32))
-    JCheckpointer(str(tmp_path)).save(
-        5, {"params": jparams, "opt": jopt, "adam": jadam},
-        metadata={"data": {"cursor": 5, "seed": 0}})
-    tparams = _torch_tree(jparams)
-    like = {"params": jax.tree.map(torch.zeros_like, tparams),
-            "opt": momentum_sgd_init(tparams), "adam": adamw_init(tparams)}
-    step, state, meta = Checkpointer(str(tmp_path)).restore(like)
-    assert step == 5 and meta["data"] == {"cursor": 5, "seed": 0}
-    assert isinstance(state["opt"], MomentumState)
-    assert isinstance(state["adam"], AdamWState)
-    assert state["adam"].step.dtype == torch.int32
-    _assert_trees_equal(state["params"], jparams)
-    _assert_trees_equal(state["opt"], jopt)
-    _assert_trees_equal(state["adam"], jadam)
+    for arch, jp in jparams:
+        rng = np.random.default_rng(0)
+        jopt = JMomentumState(history=jax.tree.map(
+            lambda p: jnp.asarray(rng.standard_normal(p.shape), jnp.float32),
+            jp))
+        jadam = j_adamw_init(jp)._replace(step=jnp.asarray(7, jnp.int32))
+        JCheckpointer(str(tmp_path / arch)).save(
+            5, {"params": jp, "opt": jopt, "adam": jadam},
+            metadata={"data": {"cursor": 5, "seed": 0}})
+        tparams = _torch_tree(jp)
+        like = {"params": jax.tree.map(torch.zeros_like, tparams),
+                "opt": momentum_sgd_init(tparams),
+                "adam": adamw_init(tparams)}
+        step, state, meta = Checkpointer(str(tmp_path / arch)).restore(like)
+        assert step == 5 and meta["data"] == {"cursor": 5, "seed": 0}
+        assert isinstance(state["opt"], MomentumState)
+        assert isinstance(state["adam"], AdamWState)
+        assert state["adam"].step.dtype == torch.int32
+        assert type(state["params"]["layers"]) is type(jp["layers"])
+        _assert_trees_equal(state["params"], jp)
+        _assert_trees_equal(state["opt"], jopt)
+        _assert_trees_equal(state["adam"], jadam)
 
 
 def test_port_checkpoint_restores_in_jax(jparams, tmp_path):
-    tparams = _torch_tree(jparams)
-    g = torch.Generator().manual_seed(1)
-    topt = momentum_sgd_init(tparams)
-    for h in tree_leaves(topt):
-        h.normal_(generator=g)
-    Checkpointer(str(tmp_path)).save(9, {"params": tparams, "opt": topt},
-                                     metadata={"data": {"cursor": 9}})
-    like = {"params": jax.tree.map(jnp.zeros_like, jparams),
-            "opt": j_momentum_init(jparams)}
-    step, state, meta = JCheckpointer(str(tmp_path)).restore(like)
-    assert step == 9 and meta["data"]["cursor"] == 9
-    assert isinstance(state["opt"], JMomentumState)
-    _assert_trees_equal(tparams, state["params"])
-    _assert_trees_equal(topt, state["opt"])
-    # and the interop path gives the port's own state class back
-    back = to_torch(to_numpy(topt), device="cpu")
-    assert isinstance(back, MomentumState)
-    _assert_trees_equal(back, state["opt"])
-    assert isinstance(to_torch(jax.tree.map(np.asarray, state["opt"]),
-                               device="cpu"), MomentumState)
+    for arch, jp in jparams:
+        tparams = _torch_tree(jp)
+        g = torch.Generator().manual_seed(1)
+        topt = momentum_sgd_init(tparams)
+        for h in tree_leaves(topt):
+            h.normal_(generator=g)
+        Checkpointer(str(tmp_path / arch)).save(
+            9, {"params": tparams, "opt": topt},
+            metadata={"data": {"cursor": 9}})
+        like = {"params": jax.tree.map(jnp.zeros_like, jp),
+                "opt": j_momentum_init(jp)}
+        step, state, meta = JCheckpointer(str(tmp_path / arch)).restore(like)
+        assert step == 9 and meta["data"]["cursor"] == 9
+        assert isinstance(state["opt"], JMomentumState)
+        _assert_trees_equal(tparams, state["params"])
+        _assert_trees_equal(topt, state["opt"])
+        # and the interop path gives the port's own state class back
+        back = to_torch(to_numpy(topt), device="cpu")
+        assert isinstance(back, MomentumState)
+        _assert_trees_equal(back, state["opt"])
+        assert isinstance(to_torch(jax.tree.map(np.asarray, state["opt"]),
+                                   device="cpu"), MomentumState)
 
 
 def test_save_load_pytree_single_file(tmp_path):

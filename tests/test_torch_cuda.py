@@ -599,3 +599,84 @@ class TestScatterTilesOnCard:
         assert np.all(np.abs(ak.cpu().numpy() - ap.cpu().numpy())
                       <= 2 * m * 2.0 ** -24 * absum)
         np.testing.assert_allclose(float(ssk), float(ssp), rtol=1e-5)
+
+
+@pytest.mark.cuda
+class TestSlice8OnCard:
+    """Jamba's attention layer (32/8 heads of 128: a GQA group of 4) in
+    the flash kernel, and the reduced deepseek-v2 (MLA), jamba (16 layers:
+    mamba, attention, experts on odd layers) and rwkv6 in f32 on the card
+    against the CPU from the same params: loss, the "pallas" prefill's
+    logits and every cache entry, 4 decode steps' logits and cache, within
+    atol 1e-4 / rtol 1e-4 (f32 sums in other orders); one flash launch an
+    attention layer (jamba 2, the others none); decode writes every cache
+    tensor, the recurrent states too, in place."""
+
+    @pytest.mark.parametrize("s", [48, 4096])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_flash_attention_group_of_four(self, s, dtype):
+        _need_card()
+        q, k, v = _attn_inputs(1, 32, 8, s, 128, dtype, seed=s + 8,
+                               strided=True)
+        before = ops.flash_attention_op.launches
+        with torch.no_grad():
+            out = ops.flash_attention_op(q, k, v)
+        assert ops.flash_attention_op.launches == before + 1
+        ref = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == dtype
+        _assert_attn_close(out, ref)
+
+    @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b",
+                                      "rwkv6-1.6b"])
+    def test_reduced_family_card_matches_cpu(self, arch):
+        _need_card()
+        from repro_torch.configs import get_config
+        from repro_torch.models import attention, build_model
+        from repro_torch.tree import tree_flatten_with_path, tree_map
+        cfg = get_config(arch).reduced()
+        models = {d: build_model(cfg, dtype=torch.float32, device=d)
+                  for d in ("cpu", "cuda")}
+        params = models["cpu"].init(torch.Generator().manual_seed(0))
+        params = {"cpu": params,
+                  "cuda": tree_map(lambda t: t.cuda(), params)}
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        out = {}
+        for dev, model in models.items():
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                loss, _ = model.loss_fn(params[dev], b)
+            before = ops.flash_attention_op.launches
+            attention.set_attention_impl("pallas")
+            try:
+                logits, cache = model.prefill(params[dev],
+                                              {"tokens": b["tokens"]})
+            finally:
+                attention.set_attention_impl("blockwise")
+            launches = ops.flash_attention_op.launches - before
+            dec = model.init_cache(2, 8)
+            ptrs = [t.data_ptr() for _, t in tree_flatten_with_path(dec)[0]]
+            steps = []
+            for pos in range(4):
+                lg, dec = model.decode_step(params[dev], dec,
+                                            b["tokens"][:, pos:pos + 1], pos)
+                steps.append(lg)
+            assert [t.data_ptr() for _, t in
+                    tree_flatten_with_path(dec)[0]] == ptrs
+            out[dev] = (loss, logits, cache, torch.stack(steps), dec,
+                        launches)
+        n_attn = sum(k == "a" for k in cfg.layer_kinds)
+        assert out["cuda"][5] == n_attn and out["cpu"][5] == 0
+        for i in (0, 1, 3):
+            torch.testing.assert_close(out["cuda"][i].cpu(), out["cpu"][i],
+                                       rtol=1e-4, atol=1e-4)
+        for i in (2, 4):
+            card = tree_flatten_with_path(out["cuda"][i])[0]
+            cpu = tree_flatten_with_path(out["cpu"][i])[0]
+            assert [n for n, _ in card] == [n for n, _ in cpu]
+            for (name, a), (_, b) in zip(card, cpu):
+                assert a.is_cuda
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                           msg=name)

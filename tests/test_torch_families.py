@@ -1,7 +1,10 @@
-"""The model families of slice 7 on the port, against the JAX package:
-qwen2-7b (dense, 28/4 heads), phi-3-vision-4.2b (dense with the stubbed
-patch-embedding prefix) and granite-moe-1b-a400m (sparse experts on every
-layer), each at its reduced size.
+"""The model families of slices 7 and 8 on the port, against the JAX
+package: qwen2-7b (dense, 28/4 heads), phi-3-vision-4.2b (dense with the
+stubbed patch-embedding prefix), granite-moe-1b-a400m (sparse experts on
+every layer), deepseek-v2-236b (latent attention, shared and routed
+experts), jamba-v0.1-52b (the hybrid: groups of 8 layers, 7 mamba and one
+attention, experts on odd layers; 16 layers reduced) and rwkv6-1.6b (the
+RWKV6 time and channel mix), each at its reduced size.
 
 * Twins of ``tests/test_configs_smoke.py``'s ``test_train_step_smoke``,
   ``test_prefill_decode_smoke`` and ``test_decode_matches_prefill`` for the
@@ -15,7 +18,11 @@ layer), each at its reduced size.
   numpy, in f32: total loss, the loss and the aux loss within 1e-5, grads
   within rtol 1e-4 / atol 1e-6 (as ``test_torch_model.py``: the same f32
   math summed in other orders), prefill logits and cache and four decode
-  steps' logits within atol 2e-5 / rtol 1e-5 (as ``test_torch_serve.py``).
+  steps' logits within atol 2e-5 / rtol 1e-5 (as ``test_torch_serve.py``),
+  every cache leaf (k and v, MLA's latent, the recurrent states) as well.
+  Two grads need a looser atol, measured (``GRAD_ATOL``): the embedding's
+  gradient is a sum through the whole stack, and there each side's own f32
+  rounding already exceeds 1e-6 against a float64 run of the port.
 * The flash kernel's plain version at head dim 96 (phi-3-vision's) against
   the Pallas kernel in interpret mode: f32 within atol 2e-6, bf16 within
   one bf16 ulp (rtol 2^-7), as ``test_torch_serve.py`` holds D 32.
@@ -35,23 +42,32 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import list_configs as j_list_configs
 from repro.dist.flatbuf import flat_compress_roundtrip as j_roundtrip
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.models import build_model as j_build_model
 from repro.models import transformer as jtf
 from repro.models.api import text_len as j_text_len
 from repro.ps.server import ParameterServer as JServer
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_configs
 from repro_torch.dist.flatbuf import flat_compress_roundtrip
 from repro_torch.interop import to_numpy, to_torch
 from repro_torch.kernels import flash_attention_op
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.launch.serve import serve
 from repro_torch.models import build_model, text_len, value_and_grad
 from repro_torch.models import transformer as ttf
 from repro_torch.ps.server import ParameterServer
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
-ARCHS = ["qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m"]
+ARCHS = ["qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
+         "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b"]
+# the embedding's gradient against a float64 run of the port (its casts to
+# f32 made f64), as the largest excess over rtol 1e-4: jamba (16 layers)
+# JAX 1.31e-5, the port 6.9e-6, JAX against the port 8.8e-6; rwkv6 JAX
+# 2.0e-6, the port 9.4e-7, JAX against the port 1.04e-6.  About twice the
+# reference's own distance from f64; every other leaf holds 1e-6
+GRAD_ATOL = {"jamba-v0.1-52b": 3e-5, "rwkv6-1.6b": 4e-6}
 BATCH, SEQ = 2, 64
 
 
@@ -91,6 +107,28 @@ def test_registered_configs_match_reference():
         assert text_len(get_config(arch), 4096) == j_text_len(
             j_get_config(arch), 4096)
     assert get_config("phi-3-vision-4.2b").head_dim == 96
+    assert get_config("jamba-v0.1-52b").group_size == 8
+    assert get_config("jamba-v0.1-52b").reduced().n_groups == 2
+
+
+def test_only_the_encoder_decoder_is_refused():
+    """Every registered config builds but whisper-tiny (queue A item 2.7),
+    whose params, cache and serving raise."""
+    assert list(list_configs()) == list(j_list_configs())
+    for arch in list_configs():
+        for cfg in (get_config(arch), get_config(arch).reduced()):
+            model = build_model(cfg, device="cpu")
+            if cfg.encoder is None:
+                ttf._check_supported(cfg)
+                for i in range(cfg.group_size):     # every layer kind
+                    assert ttf.layer_cache_spec(cfg, i, 1, 8)
+                continue
+            with pytest.raises(NotImplementedError):
+                model.init(torch.Generator().manual_seed(0))
+            with pytest.raises(NotImplementedError):
+                model.init_cache(1, 8)
+            with pytest.raises(NotImplementedError):
+                serve(model, {}, [], 1, 8)
     assert ttf.AUX_LOSS_COEF == jtf.AUX_LOSS_COEF
 
 
@@ -136,8 +174,13 @@ def test_prefill_decode_smoke(arch, built):
     logits, cache = model.prefill(params, batch)
     assert logits.shape == (BATCH, cfg.padded_vocab)
     assert torch.isfinite(logits.float()).all()
-    assert cache["layers"]["k"].shape[2] == SEQ    # the prefix is cached
     dec_cache = model.init_cache(BATCH, SEQ + 8)
+    for (name, leaf), dec_leaf in zip(tree_flatten_with_path(cache)[0],
+                                      tree_leaves(dec_cache)):
+        if name.rsplit("/", 1)[-1] in ("k", "v", "ckv", "krope"):
+            assert leaf.shape[2] == SEQ, name     # the prefix is cached
+        else:                                     # a recurrent state
+            assert leaf.shape == dec_leaf.shape, name
     tok = torch.full((BATCH, 1), 3, dtype=torch.int32)
     for step in range(2):
         logits, dec_cache = model.decode_step(params, dec_cache, tok, step)
@@ -206,7 +249,7 @@ def test_loss_aux_and_grads_match(arch, pairs):
     assert len(jleaves) == len(tleaves)
     for tg, jg in zip(tleaves, jleaves):
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-4,
-                                   atol=1e-6)
+                                   atol=GRAD_ATOL.get(arch, 1e-6))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -217,11 +260,13 @@ def test_prefill_and_decode_match(arch, pairs):
     tlogits, tcache = tmodel.prefill(tparams, _torch(b))
     np.testing.assert_allclose(_np(tlogits), _np(jlogits), rtol=1e-5,
                                atol=2e-5)
-    for k in ("k", "v"):
-        assert tuple(tcache["layers"][k].shape) == jcache["layers"][k].shape
-        np.testing.assert_allclose(_np(tcache["layers"][k]),
-                                   _np(jcache["layers"][k]), rtol=1e-5,
-                                   atol=2e-5)
+    tnamed = tree_flatten_with_path(tcache)[0]
+    jleaves = jax.tree_util.tree_leaves(jcache)
+    assert len(tnamed) == len(jleaves)
+    for (name, t), j in zip(tnamed, jleaves):
+        assert tuple(t.shape) == j.shape, name
+        np.testing.assert_allclose(_np(t), _np(j), rtol=1e-5, atol=2e-5,
+                                   err_msg=name)
     jc, tc = jmodel.init_cache(BATCH, 8), tmodel.init_cache(BATCH, 8)
     decode = jax.jit(jmodel.decode_step)
     toks = b["tokens"]

@@ -325,7 +325,9 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     assert prof.summary()["metrics"]["commits"] == res.commits
     assert aggregator_hbm_traffic(4, 1024)["ratio"] > 1.0
     from repro_torch.models import text_len
-    for arch in ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m"):
+    # and slice 8's: MLA, the jamba hybrid (mamba), rwkv6
+    for arch in ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
+                 "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b"):
         fcfg = get_config(arch).reduced()
         fm = build_model(fcfg, dtype=torch.float32, device="cpu")
         fp = fm.init(torch.Generator().manual_seed(0))
