@@ -70,8 +70,10 @@ toolkit.  Every line it prints is one JSON object:
    and 48, and D 96 (bf16 ragged and not causal, f32 ragged, S 48).
    Within atol 2e-5 / rtol 1e-5 in f32 and one bf16 ulp in bf16.  Timed
    too, with SDPA and the bound: phi-3-vision's D 96 (32/32 heads, B 1,
-   S 4096) in bf16 and f32, qwen2-7b's D 128 (28/4 heads, S 32768) and
-   jamba's attention layer (32/8 heads of 128, S 32768).
+   S 4096) in bf16 and f32, qwen2-7b's D 128 (28/4 heads, S 32768),
+   jamba's attention layer (32/8 heads of 128, S 32768) and whisper's
+   decoder prefill (B 32, S 32768, 6/6 heads of 64); checked, not causal,
+   at the reduced whisper's encoder shape (S 16, 4/2 heads of 32).
 11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
    f32 under the "pallas" impl, card against CPU: prefill logits and
    cache, 24 decode steps (teacher-forced, then greedy) with the
@@ -105,9 +107,10 @@ toolkit.  Every line it prints is one JSON object:
    then the three tiers on that world.
 18. ``reduced_family_parity``: the reduced qwen2-7b, phi-3-vision (with
    patch embeddings), granite-moe, deepseek-v2 (MLA), jamba (mamba and
-   attention, experts on odd layers) and rwkv6 in f32, card against CPU:
-   loss, aux loss, the "pallas" prefill's logits and every cache entry and
-   4 decode steps; one flash launch an attention layer.
+   attention, experts on odd layers), rwkv6 and whisper (bf16 stub
+   frames) in f32, card against CPU: loss, aux loss, the "pallas"
+   prefill's logits and every cache entry and 4 decode steps; the flash
+   launches of the reference's dispatch rule (``flash_launches``).
 19. ``scenario``: cell A's MLfabric-A under
    ``scenarios.paper_dynamic_cluster(4, horizon=12)`` (a leave, an
    aggregator outage, a congestion wave, a join) with a ``PhaseProfiler``:
@@ -139,7 +142,18 @@ toolkit.  Every line it prints is one JSON object:
 26. ``rwkv_serve`` (cell O): rwkv6-1.6b whole (24 layers): the 32k
    prefill (no kernel: bit-equal), ``long_500k`` decode beside a step at
    pos 0, the serve loop, prefill against decode.
-27. The ``{"kernels": [...]}`` summary (seven kernels), then
+27. ``whisper_serve`` (cell Q): whisper-tiny at its published widths (4 +
+   4 layers, d 384, 6/6 heads of 64, 1,500 stub frames): ``prefill_32k``
+   at its own batch of 32 beside seeded bf16 frames (4 flash launches a
+   prefill, the decoder's; the encoder and the cross-attention take the
+   blockwise loop) against "blockwise", ``decode_32k`` at batch 128 (pos
+   32767 and 0; ``cross_kv`` read, never written), the serve loop (a
+   prefill a batch under "pallas"), prefill against decode in bf16 and
+   f32, and part ``train``: MLfabric-A with cell A's trainer, frames
+   seeded by worker and step, the encoder's weights moving.
+28. ``rwkv_train`` (cell P): MLfabric-A on the whole rwkv6-1.6b (1.23 B
+   parameters), 8 commits: the backward through the WKV chunks.
+29. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -906,14 +920,27 @@ def phase_reduced_parity():
           f"reduced slice: card and CPU losses differ by {max(diffs)}")
 
 
+def stub_frames(cfg, batch: int, rng, dev):
+    """``batch`` stub audio frames [batch, n_frames, d_model]: normals from
+    the numpy generator ``rng``, in bf16 whatever the model's dtype, as
+    ``launch.serve.serve`` draws them."""
+    import torch
+    return torch.from_numpy(rng.normal(
+        size=(batch, cfg.encoder.n_frames, cfg.d_model))).to(
+            device=dev, dtype=torch.bfloat16)
+
+
 def full_width_trainer(dev, callbacks=(), remat: bool = False,
                        arch: str = FULL_ARCH, scenario=None):
     """The main path's trainer: MLfabric-A over the full-width ``arch``
     (Qwen2-0.5B by default) in bf16 from the port's seeded init,
     ``compress=True``, by default without the model's default ``remat``,
-    under ``scenario`` if one is given.  Returns the trainer and a dict of
-    what was set up (``drawn["n"]`` counts the batches drawn, one per
-    update computed; ``aux`` the aux loss of each update's forward)."""
+    under ``scenario`` if one is given.  An encoder-decoder's batches carry
+    stub frames (``stub_frames``) seeded by worker and step.  Returns the
+    trainer and a dict of what was set up (``drawn["n"]`` counts the
+    batches drawn, one per update computed; ``aux`` the aux loss of each
+    update's forward)."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import N_STATIC
@@ -932,13 +959,19 @@ def full_width_trainer(dev, callbacks=(), remat: bool = False,
     src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN, seed=0)
     drawn = {"n": 0}
 
+    def to_dev(b, seed):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if cfg.encoder is not None:
+            b["frontend_embeds"] = stub_frames(
+                cfg, BATCH, np.random.default_rng(seed), dev)
+        return b
+
     def data_fn(worker, t):
         drawn["n"] += 1
-        b = src.batch(int(worker.removeprefix("worker")) * 100003 + t, BATCH)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        w = int(worker.removeprefix("worker"))
+        return to_dev(src.batch(w * 100003 + t, BATCH), (w, t))
 
-    eval_batch = {k: torch.from_numpy(v).to(dev)
-                  for k, v in src.batch(12345, BATCH).items()}
+    eval_batch = to_dev(src.batch(12345, BATCH), 12345)
 
     def eval_fn(p):
         with torch.no_grad():
@@ -1719,9 +1752,16 @@ MOE_CACHE_TOL = 2.6e-1           # its prefill vs the decode-built cache
 # scale 1% off: 1.4-3.0%, as much as the sound readings); in f32 the mask
 # (0.49% and up) and float8 (0.26%) pass F32_REL_TOL, and the flash
 # kernel's own check at jamba's shape holds the kernel to one bf16 ulp
-FAMILY_PREFILL_TOL = {"jamba-v0.1-52b": 5e-2}
+# whisper-tiny (cell Q, 4 + 4 layers; prefill at batch 32): the 32k
+# prefill sound up to 1.09%, the cross-attention made causal 32.7%, the
+# frames one step late 112%, the decoder positions one step late 25.4%,
+# the causal mask one key off 8.1%; prefill against decode sound 1.03%,
+# the same faults 42.1%, 112%, 31.4%, 11.8%.  Float8 q, k, v (1.6% and
+# 2.1%) and the scale 1% off (0.9%) hide in bf16 among 8 layers; f32
+# sees them (1.6% and 0.11% against F32_REL_TOL)
+FAMILY_PREFILL_TOL = {"jamba-v0.1-52b": 5e-2, "whisper-tiny": 2.2e-2}
 FAMILY_CACHE_TOL = {"deepseek-v2-236b": 4e-2, "jamba-v0.1-52b": 1.1e-1,
-                    "rwkv6-1.6b": 5.2e-2}
+                    "rwkv6-1.6b": 5.2e-2, "whisper-tiny": 2.1e-2}
 
 
 def attn_work(b: int, h: int, kvh: int, s: int, d: int, causal: bool):
@@ -1755,8 +1795,9 @@ def attn_bound_f32_pv_ms(flops: float) -> float:
 # of 64 at (B 2, S 4096) and at the prefill shape (B 1, S 32768; the
 # kernel line's row), phi-3-vision's head dim 96 (32/32 heads; its
 # 4096-position prefill) in both bodies, qwen2-7b's 28/4 heads of 128 at
-# 32k and jamba's 32/8 heads of 128 (its attention layer, a GQA group of 4)
-# at 32k.  (B, H, KVH, S, D, dtype, seed)
+# 32k, jamba's 32/8 heads of 128 (its attention layer, a GQA group of 4)
+# at 32k, and whisper-tiny's decoder prefill (6/6 heads of 64, a group of
+# 1) at prefill_32k's own batch of 32.  (B, H, KVH, S, D, dtype, seed)
 FLASH_TIMED = {
     "qwen2-0.5b B 2 S 4096": (2, ATTN_HEADS, ATTN_KV_HEADS, 4096, ATTN_D,
                               "bfloat16", 4096),
@@ -1766,6 +1807,7 @@ FLASH_TIMED = {
     "phi-3-vision D 96 f32": (1, 32, 32, 4096, 96, "float32", 4192),
     "qwen2-7b D 128 bf16": (1, 28, 4, 32768, 128, "bfloat16", 32896),
     "jamba D 128 32/8 bf16": (1, 32, 8, 32768, 128, "bfloat16", 33024),
+    "whisper-tiny prefill": (32, 6, 6, 32768, 64, "bfloat16", 32832),
 }
 FLASH_KERNEL_LINE = "qwen2-0.5b prefill"
 
@@ -1893,6 +1935,12 @@ def kernel_flash_attention(dev, rows) -> None:
                                            True, False),
                 "D 96 bf16 S 48": (2, 4, 2, 48, 96, torch.bfloat16, True,
                                    True),
+                # the reduced whisper's encoder and cross-attention (16
+                # frames, 16 tokens): the kernel's only non-causal callers
+                "whisper reduced S 16 not causal f32": (
+                    2, 4, 2, 16, 32, torch.float32, False, True),
+                "whisper reduced S 16 not causal bf16": (
+                    2, 4, 2, 16, 32, torch.bfloat16, False, True),
         }.items():
             q, k, v = inputs(b, h, kvh, s, d, dtype, seed=s + h,
                              strided=strided)
@@ -2016,8 +2064,12 @@ def _bf16_rel(a, b) -> float:
 
 # cache entries with a position axis ([stack, B, S, ...]): attention's k
 # and v, MLA's latent; the others (mamba's conv and ssm, rwkv's shift, wkv
-# and cm_shift) are states, the whole of which a prefill hands on
+# and cm_shift) are states, the whole of which a prefill hands on.  An
+# encoder-decoder's cache also holds the encoder's keys and values
+# (``cross_kv``, [L, B, F, KVH, D] each), which decode reads and never
+# writes: ``cache_entries`` names them ``CROSS``
 POSITIONAL = ("k", "v", "ckv", "krope")
+CROSS = ("cross_k", "cross_v")
 
 
 def cache_slots(cache) -> list:
@@ -2029,7 +2081,8 @@ def cache_slots(cache) -> list:
 
 def cache_entries(cache, cache_ref=None):
     """(name, tensor[, the reference's tensor]) for every cache entry, the
-    reference's positional ones cut to the positions the first holds."""
+    reference's positional ones cut to the positions the first holds; the
+    ``cross_kv`` pair as ``CROSS`` where both caches hold it."""
     slots = cache_slots(cache)
     refs = cache_slots(cache_ref) if cache_ref is not None else slots
     for slot, ref in zip(slots, refs):
@@ -2039,6 +2092,12 @@ def cache_entries(cache, cache_ref=None):
             else:
                 yield k, t, (ref[k][:, :, :t.shape[2]] if k in POSITIONAL
                              else ref[k])
+    if "cross_kv" in cache and (cache_ref is None or "cross_kv" in cache_ref):
+        for i, k in enumerate(CROSS):
+            if cache_ref is None:
+                yield k, cache["cross_kv"][i]
+            else:
+                yield k, cache["cross_kv"][i], cache_ref["cross_kv"][i]
 
 
 def prefill_rel(logits, cache, logits_ref, cache_ref) -> dict:
@@ -2077,12 +2136,17 @@ def cache_row_stats(cache, cache_ref, limit: float) -> dict:
     return out
 
 
-def decode_built(model, params, prompts, max_len: int):
+def decode_built(model, params, prompts, max_len: int, frames=None):
     """Teacher-forced decode of ``prompts`` from position 0 under
-    "blockwise": (the logits at the last prompt position, the cache)."""
+    "blockwise": (the logits at the last prompt position, the cache).  An
+    encoder-decoder's cache takes ``cross_kv`` from a prefill of the
+    prompts beside ``frames``, as ``launch.serve.serve`` does."""
     from repro_torch.models import attention
     attention.set_attention_impl("blockwise")
     cache = model.init_cache(prompts.shape[0], max_len)
+    if frames is not None:
+        cache["cross_kv"] = model.prefill(params, {
+            "tokens": prompts, "frontend_embeds": frames})[1]["cross_kv"]
     for pos in range(prompts.shape[1]):
         logits, cache = model.decode_step(params, cache,
                                           prompts[:, pos:pos + 1], pos)
@@ -2090,17 +2154,21 @@ def decode_built(model, params, prompts, max_len: int):
 
 
 def prefill_vs_decode(model, params, prompts, logits_dec, cache_dec,
-                      row_limit: float = None) -> dict:
-    """The "pallas" prefill of ``prompts`` against the logits and cache
-    that ``decode_built`` gave for them: per layer, the largest difference
-    of each cache entry (k and v, the latent, the recurrent states after
-    the last prompt token) over the prefill's largest value, and the
-    first layer's of each; the logits' difference;
+                      row_limit: float = None, frames=None) -> dict:
+    """The "pallas" prefill of ``prompts`` (beside ``frames`` for an
+    encoder-decoder) against the logits and cache that ``decode_built``
+    gave for them: per layer, the largest difference of each cache entry
+    (k and v, the latent, the recurrent states after the last prompt
+    token, the encoder's ``cross_kv``) over the prefill's largest value,
+    and the first layer's of each; the logits' difference;
     the prefill's top-1 margins and the rows whose top-1 agree; with
     ``row_limit``, ``cache_row_stats`` at that limit."""
     from repro_torch.models import attention
     attention.set_attention_impl("pallas")
-    logits_pre, cache_pre = model.prefill(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frontend_embeds"] = frames
+    logits_pre, cache_pre = model.prefill(params, batch)
     attention.set_attention_impl("blockwise")
     rel = {}
     for k, pre, dec in cache_entries(cache_pre, cache_dec):
@@ -2130,16 +2198,29 @@ def phase_serve():
 def serve_loop(phase: str, cfg, model, params, launches_before: dict):
     """``launch.serve.serve`` on ``SERVE_REQUESTS`` seeded requests of
     ``SERVE_PROMPT`` tokens, batch ``SERVE_BATCH``, ``SERVE_NEW`` new
-    tokens each; it launches no kernel (the counts stay
-    ``launches_before``).  Returns (the requests served, the launches)."""
+    tokens each; decode launches no kernel (the counts stay
+    ``launches_before``).  An encoder-decoder's ``serve`` prefills each
+    batch beside stub frames from the requests' generator; that runs
+    under "pallas", so each prefill adds its flash launches
+    (``flash_launches``).  Returns (the requests served, the launches)."""
     import numpy as np
     from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import attention
 
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT)
                     .astype(np.int32)) for i in range(SERVE_REQUESTS)]
     max_len = SERVE_PROMPT + SERVE_NEW
-    done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len)
+    want = dict(launches_before)
+    if cfg.encoder is not None:
+        attention.set_attention_impl("pallas")
+        want["flash_attention"] += flash_launches(cfg, SERVE_PROMPT) * (
+            SERVE_REQUESTS // SERVE_BATCH)
+    try:
+        done, steps, dt = serve(model, params, reqs, SERVE_BATCH, max_len,
+                                rng)
+    finally:
+        attention.set_attention_impl("blockwise")
     launches = ops_launches()
     n_new = sum(len(r.output) for r in done)
     emit({"phase": phase, "part": "serve_loop", "requests": len(done),
@@ -2150,8 +2231,7 @@ def serve_loop(phase: str, cfg, model, params, launches_before: dict):
           "first_outputs": [r.output[:8] for r in done[:2]]})
     check(steps == SERVE_REQUESTS // SERVE_BATCH * (max_len - 1)
           and n_new == SERVE_REQUESTS * SERVE_NEW, "serve loop counts")
-    check(launches == launches_before,
-          f"decode launched kernels: {launches}")
+    check(launches == want, f"serve launched {launches}, want {want}")
     return done, launches
 
 
@@ -2802,9 +2882,11 @@ def phase_reduced_ps_parity(seeds=PS_PARITY_SEEDS) -> None:
 # worker0's and worker3's NICs dip to 1 Gb/s from 3 s for 4 s; cell A's
 # full-width update (a 494 MB int8 wire) commits before, between and after
 FAMILY_ARCHS = ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
-                "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b")
+                "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b",
+                "whisper-tiny")
 SCENARIO_HORIZON = 12.0
-MOE_ARCH, MOE_COMMITS = "granite-moe-1b-a400m", 8
+MOE_ARCH, FAMILY_COMMITS = "granite-moe-1b-a400m", 8
+RWKV_ARCH, WHISPER_ARCH = "rwkv6-1.6b", "whisper-tiny"
 VLM_ARCH, VLM_SEQ = "phi-3-vision-4.2b", 4096
 DENSE_7B_ARCH, DENSE_7B_DECODE_BATCH = "qwen2-7b", 16
 AFTER_PREFILL_STEPS = 8
@@ -2904,23 +2986,31 @@ def phase_scenario(rows) -> dict:
     return launches
 
 
-def phase_moe_train() -> dict:
-    """Cell I: MLfabric-A on the full-width granite-moe-1b-a400m (24
-    layers of 32 experts, top 8, an f32 router beside bf16 experts) with
-    cell A's settings, ``MOE_COMMITS`` commits: the int8 wire on the whole
-    flat update, one quantize and one dequant_aggregate per update; every
-    loss and aux loss finite and each aux loss above zero."""
+def family_train(phase: str, arch: str, part: str = None) -> dict:
+    """MLfabric-A on the full-width ``arch`` with cell A's settings,
+    ``FAMILY_COMMITS`` commits: the int8 wire on the whole flat update, one
+    quantize and one dequant_aggregate per update, every loss finite.  A
+    config with experts (an f32 router beside bf16 experts) also holds
+    each update's aux loss finite and above zero; an encoder-decoder's
+    updates carry stub frames, and its encoder's weights must move (the
+    gradient reaches them through the cross-attention).  Then
+    ``wire_check`` holds both kernels against their plain versions at the
+    arch's flat length.  The lines are ``phase``'s (with ``part``, if
+    given)."""
     import torch
+    from repro_torch.tree import tree_flatten_with_path
 
     dev = torch.device("cuda", 0)
-    tr, setup = full_width_trainer(dev, arch=MOE_ARCH)
+    tr, setup = full_width_trainer(dev, arch=arch)
     model, cfg = setup["model"], setup["cfg"]
     setup["aux"].clear()
+    encoder = ({n: t.clone() for n, t in tree_flatten_with_path(
+        tr.server.params["encoder"])[0]} if cfg.encoder is not None else {})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()
     t0 = time.perf_counter()
-    res = tr.run(until_commits=MOE_COMMITS)
+    res = tr.run(until_commits=FAMILY_COMMITS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops_launches()
@@ -2930,35 +3020,140 @@ def phase_moe_train() -> dict:
     with torch.no_grad():
         total, m = model.loss_fn(tr.server.params, setup["eval_batch"])
     losses = [l for _, l in res.losses]
-    emit({"phase": "moe_train", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
-          "params": setup["params"], "flat_len": setup["flat_len"],
-          "dtype": "bfloat16", "router_dtype": str(
-              tr.server.params["layers"]["mlp"]["router"].dtype),
-          "seq_len": SEQ_LEN, "batch": BATCH, "n_workers": 4,
-          "commits": res.commits, "drops": res.drops,
-          "updates_computed": computed, "delay_stats": res.delay_stats,
-          "loss_before": setup["loss_before"], "eval_losses": losses,
-          "update_aux_losses": aux, "final_loss": float(m["loss"]),
-          "final_aux_loss": float(m["aux_loss"]),
-          # the stack sums its layers' losses: balanced routing reads 1 a
-          # layer, all tokens on one expert n_experts
-          "aux_loss_per_layer": [a / cfg.n_layers
-                                 for a in aux + [float(m["aux_loss"])]],
-          "wall_s": wall,
-          "wall_s_per_commit": wall / max(res.commits, 1),
-          "launches": launches, "max_memory_allocated": peak})
-    check(res.commits >= MOE_COMMITS, f"moe_train: {res.commits} commits")
+    line = {"phase": phase, **({"part": part} if part else {}),
+            "arch": cfg.name, "n_layers": cfg.n_layers,
+            "params": setup["params"], "flat_len": setup["flat_len"],
+            "dtype": "bfloat16", "seq_len": SEQ_LEN, "batch": BATCH,
+            "n_workers": 4, "commits": res.commits, "drops": res.drops,
+            "updates_computed": computed, "delay_stats": res.delay_stats,
+            "loss_before": setup["loss_before"], "eval_losses": losses,
+            "final_loss": float(m["loss"])}
+    if cfg.moe is not None:
+        line.update({
+            "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "router_dtype": str(
+                tr.server.params["layers"]["mlp"]["router"].dtype),
+            "update_aux_losses": aux, "final_aux_loss": float(m["aux_loss"]),
+            # the stack sums its layers' losses: balanced routing reads 1 a
+            # layer, all tokens on one expert n_experts
+            "aux_loss_per_layer": [a / cfg.n_layers
+                                   for a in aux + [float(m["aux_loss"])]]})
+    moved = {}
+    if cfg.encoder is not None:
+        after = dict(tree_flatten_with_path(tr.server.params["encoder"])[0])
+        moved = {n: int((after[n] != t).sum()) for n, t in encoder.items()}
+        line.update({"encoder_layers": cfg.encoder.n_layers,
+                     "frames": cfg.encoder.n_frames,
+                     "encoder_elements_moved": moved})
+    line.update({"wall_s": wall,
+                 "wall_s_per_commit": wall / max(res.commits, 1),
+                 "launches": launches, "max_memory_allocated": peak})
+    emit(line)
+    check(res.commits >= FAMILY_COMMITS, f"{phase}: {res.commits} commits")
     check(bool(losses) and all(math.isfinite(l) for l in losses)
-          and math.isfinite(float(total)), f"moe_train: losses {losses}")
-    check(len(aux) == computed and all(math.isfinite(a) and a > 0
-                                       for a in aux + [float(m["aux_loss"])]),
-          f"moe_train: aux losses {aux}")
-    _ties(launches, computed, "moe_train")
-    del tr, model
+          and math.isfinite(float(total)), f"{phase}: losses {losses}")
+    if cfg.moe is not None:
+        check(len(aux) == computed and all(
+            math.isfinite(a) and a > 0 for a in aux + [float(m["aux_loss"])]),
+            f"{phase}: aux losses {aux}")
+    # every weight matrix of the encoder ([L, d_in, d_out]) moved; a bias or
+    # a norm may round its small steps away in bf16
+    check(all(n for name, n in moved.items() if encoder[name].dim() == 3),
+          f"{phase}: encoder weights that did not move: {moved}")
+    _ties(launches, computed, phase)
+    worker, params = tr.workers["worker0"], tr.server.params
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_check(phase, part, worker, params, setup["eval_batch"])
+    del worker, params, model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def wire_check(phase: str, part, worker, params, batch) -> None:
+    """The wire at the trained arch's own flat length: one update of
+    ``worker`` at ``params`` goes through ``flat_compress_roundtrip``, the
+    function each update of the run went through, and its quantize and
+    dequant_aggregate launches are held bit for bit against
+    ``quantize_plain`` and ``dequant_aggregate_plain`` on the same tensors
+    (the norm within 1e-5, as the kernel rows hold it).  Its launches
+    count on the stand-ins that capture the tensors, one each, and never
+    on the path's counts."""
+    import torch
+    from repro_torch.dist.flatbuf import flat_compress_roundtrip
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_aggregate import dequant_aggregate_plain
+    from repro_torch.kernels.quantize import quantize_plain
+
+    seen = {}
+    quantize_op, dequant_op = ops.quantize_op, ops.dequant_aggregate_op
+
+    def quantize_seen(x, **kw):
+        seen["x"], seen["q"] = x, quantize_op(x, **kw)
+        return seen["q"]
+
+    def dequant_seen(q, s, w, **kw):
+        seen["args"], seen["kw"] = (q, s, w), kw
+        seen["agg"] = dequant_op(q, s, w, **kw)
+        return seen["agg"]
+
+    # each op counts on the module's attribute, here the stand-in's own
+    # count: these launches stay out of the path's
+    quantize_seen.launches = dequant_seen.launches = 0
+    update, _ = worker.compute_update(params, batch, version=0, t=1)
+    ops.quantize_op, ops.dequant_aggregate_op = quantize_seen, dequant_seen
+    try:
+        flat_compress_roundtrip(update)
+    finally:
+        ops.quantize_op, ops.dequant_aggregate_op = quantize_op, dequant_op
+    del update
+    x, (q_k, s_k) = seen.pop("x"), seen.pop("q")
+    q_p, s_p = quantize_plain(x)
+    torch.cuda.synchronize()
+    q_equal = bool(torch.equal(q_k, q_p)) and bool(torch.equal(s_k, s_p))
+    d = x.numel()
+    del x, q_p, s_p, q_k, s_k
+    agg_k, ssq_k = seen.pop("agg")
+    agg_p, ssq_p = dequant_aggregate_plain(*seen.pop("args"), **seen["kw"])
+    torch.cuda.synchronize()
+    agg_equal = bool(torch.equal(agg_k, agg_p))
+    err = float((agg_k - agg_p).abs().max())
+    ssq_err = rel_err(ssq_k, ssq_p)
+    del agg_k, agg_p
+    emit({"phase": phase, **({"part": part} if part else {}),
+          "check": "wire", "flat_len": d, "quantize_bit_equal": q_equal,
+          "dequant_aggregate_bit_equal": agg_equal,
+          "dequant_aggregate_max_abs_err": err, "ssq_rel_err": ssq_err,
+          "launches": {"quantize": quantize_seen.launches,
+                       "dequant_aggregate": dequant_seen.launches}})
+    check(quantize_seen.launches == dequant_seen.launches == 1,
+          f"{phase}: the wire check launched {quantize_seen.launches} "
+          f"quantize and {dequant_seen.launches} dequant_aggregate")
+    check(q_equal, f"{phase}: quantize differs from its plain version at "
+                   f"{d} floats")
+    check(agg_equal and ssq_err <= 1e-5,
+          f"{phase}: dequant_aggregate differs from its plain version at "
+          f"{d} floats: max abs err {err}, ssq rel err {ssq_err}")
+
+
+def phase_moe_train() -> dict:
+    """Cell I: ``family_train`` on the full-width granite-moe-1b-a400m (24
+    layers of 32 experts, top 8, an f32 router beside bf16 experts)."""
+    return family_train("moe_train", MOE_ARCH)
+
+
+def phase_rwkv_train() -> dict:
+    """Cell P: ``family_train`` on the whole rwkv6-1.6b (24 layers,
+    1,229,979,648 parameters): the backward through the WKV chunk loop."""
+    return family_train("rwkv_train", RWKV_ARCH)
+
+
+def phase_whisper_train() -> dict:
+    """Cell Q's training part: ``family_train`` on the full-width
+    whisper-tiny (4 + 4 layers, 1,500 stub frames an example)."""
+    return family_train("whisper_serve", WHISPER_ARCH, part="train")
 
 
 class RouteHold:
@@ -3078,8 +3273,23 @@ def routing_drops(calls, moe) -> dict:
 
 
 def attention_layers(cfg) -> int:
-    """The layers of kind "a": the prefill's flash launches."""
+    """The decoder's layers of kind "a": those that can reach the flash
+    kernel."""
     return sum(k == "a" for k in cfg.layer_kinds)
+
+
+def flash_launches(cfg, seq: int) -> int:
+    """The flash kernel's launches in a "pallas" prefill of ``seq``
+    positions, by the reference's dispatch rule (``Sq == Skv``, a multiple
+    of 16; ``models/attention.py:blockwise_attention``): one a decoder
+    layer of kind "a"; an encoder-decoder adds one an encoder layer when
+    its frames are a multiple of 16 (whisper's 1,500 are not) and one a
+    cross layer when the tokens are as many as the frames."""
+    n = attention_layers(cfg) if seq % 16 == 0 else 0
+    if cfg.encoder is not None and cfg.encoder.n_frames % 16 == 0:
+        n += cfg.encoder.n_layers + cfg.n_layers * (
+            seq == cfg.encoder.n_frames)
+    return n
 
 
 def cache_layout(cfg, batch: int, seq: int) -> list:
@@ -3117,7 +3327,8 @@ def prefill_cell(phase: str, cfg, model, params, batch,
     n_attn = attention_layers(cfg)
     b, n = batch["tokens"].shape
     seq = n + (batch["frontend_embeds"].shape[1]
-               if "frontend_embeds" in batch else 0)
+               if cfg.frontend == "vision" and "frontend_embeds" in batch
+               else 0)
     shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=seq,
                                 global_batch=b)
     step = build_step(cfg, shape, make_host_mesh(device=dev))
@@ -3154,14 +3365,19 @@ def prefill_cell(phase: str, cfg, model, params, batch,
             attention.set_attention_impl("blockwise")
     s_prefill = sum(secs[1:]) / PREFILL_TIMED
     want = dict.fromkeys(KERNELS, 0)
-    want["flash_attention"] = n_attn * (1 + PREFILL_TIMED)
+    want["flash_attention"] = flash_launches(cfg, seq) * (1 + PREFILL_TIMED)
+    frames = ({"encoder_layers": cfg.encoder.n_layers,
+               "frames": cfg.encoder.n_frames}
+              if cfg.encoder is not None else {})
     emit({"phase": phase, "part": "prefill", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "n_layers": cfg.n_layers, **frames,
+          "heads": [cfg.n_heads, cfg.n_kv_heads],
           "head_dim": cfg.head_dim if cfg.mla is None else [
               cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
               cfg.mla.v_head_dim],
           "dtype": "bfloat16", "impl": "pallas",
           "layer_pattern": cfg.layer_pattern, "attention_layers": n_attn,
+          "flash_launches_per_prefill": flash_launches(cfg, seq),
           **reduced,
           "seq_len": seq, "text_tokens": n, "batch": b,
           "warmup_s": secs[0], "prefill_s": secs[1:],
@@ -3178,6 +3394,10 @@ def prefill_cell(phase: str, cfg, model, params, batch,
     check([{k: tuple(t.shape) for k, t in slot.items()}
            for slot in cache_slots(cache)] == cache_layout(cfg, b, seq),
           f"{phase}: cache shape")
+    if cfg.encoder is not None:
+        check([tuple(t.shape) for t in cache["cross_kv"]] == [(
+            cfg.n_layers, b, cfg.encoder.n_frames, cfg.n_kv_heads,
+            cfg.head_dim)] * 2, f"{phase}: cross_kv shape")
     limit = prefill_limit(cfg)
     check(all(r <= limit for r in rel.values()),
           f"{phase}: pallas and blockwise prefill differ: {rel}")
@@ -3195,6 +3415,8 @@ def decode_after_prefill(phase: str, model, params, logits, cache,
     dec = model.init_cache(b, seq + steps)
     for _, t, d in cache_entries(cache, dec):
         d.copy_(t)
+    if "cross_kv" in cache:
+        dec["cross_kv"] = cache["cross_kv"]
     tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
     launches0 = ops_launches()
     secs, toks = [], []
@@ -3328,19 +3550,23 @@ def phase_qwen2_7b_serve() -> dict:
 # slice 8: DeepSeek-V2's latent attention, the Jamba hybrid and RWKV6 served
 # at their published widths (cells M, N, O)
 # --------------------------------------------------------------------------- #
-# per cell: the phase, the layers run (of 60, 32 and 24 published), the
-# prefill's tokens at batch 1, the decode shape and batch, the layers of
-# the f32 prefill-against-decode check, and whether the serve loop runs
+# per cell: the phase, the layers run (of 60, 32, 24 and 4 published),
+# the prefill's tokens and batch, the decode shape and batch, the layers
+# of the f32 prefill-against-decode check, and whether the serve loop runs
 SERVE_CELLS = {
     "deepseek-v2-236b": dict(phase="deepseek_serve", layers=4, prefill=4096,
-                             decode="decode_32k", batch=128, f32_layers=1,
-                             serve_loop=False),
+                             prefill_batch=PREFILL_BATCH, decode="decode_32k",
+                             batch=128, f32_layers=1, serve_loop=False),
     "jamba-v0.1-52b": dict(phase="jamba_serve", layers=8, prefill=32768,
-                           decode="long_500k", batch=1, f32_layers=8,
-                           serve_loop=False),
+                           prefill_batch=PREFILL_BATCH, decode="long_500k",
+                           batch=1, f32_layers=8, serve_loop=False),
     "rwkv6-1.6b": dict(phase="rwkv_serve", layers=24, prefill=32768,
-                       decode="long_500k", batch=1, f32_layers=24,
-                       serve_loop=True),
+                       prefill_batch=PREFILL_BATCH, decode="long_500k",
+                       batch=1, f32_layers=24, serve_loop=True),
+    # slice 9: prefill_32k at its own global batch of 32
+    "whisper-tiny": dict(phase="whisper_serve", layers=4, prefill=32768,
+                         prefill_batch=32, decode="decode_32k", batch=128,
+                         f32_layers=4, serve_loop=True),
 }
 # each cell's cuts of scale, printed in its lines
 SERVE_CELL_CUTS = {
@@ -3358,6 +3584,11 @@ SERVE_CELL_CUTS = {
         "prefill against decode in f32 on the same block from the same "
         "seed, after the bf16 params are freed (51 GB)"],
     "rwkv6-1.6b": ["prefill_32k at batch 1, not 32"],
+    "whisper-tiny": [
+        "prefill_32k and decode_32k run 32,768 decoder positions, past the "
+        "published 448-token text context: the sinusoidal decoder "
+        "positions have no limit, and these are the repo's shapes for "
+        "every arch (configs/shapes.py)"],
 }
 
 
@@ -3394,12 +3625,13 @@ def family_decode(phase: str, cfg, model, params, shape, gen,
                   reduced: dict) -> None:
     """One decode step of ``shape`` (``decode_32k`` or ``long_500k``) at
     its last position, against a cache of its length filled from a seeded
-    generator (the recurrent states too): 1 warm-up, which records the
-    routing, and ``DECODE_TIMED`` timed, then ``DECODE_TIMED`` at position
-    0.  Every cache tensor is written in place: the position's rows and
-    the states change, their storage does not.  Bound: the cache and the
-    params read once at the memory rate, of the experts only those the
-    step's tokens reach."""
+    generator (the recurrent states too, and an encoder-decoder's
+    ``cross_kv`` of its frames): 1 warm-up, which records the routing, and
+    ``DECODE_TIMED`` timed, then ``DECODE_TIMED`` at position 0.  Every
+    cache tensor is written in place: the position's rows and the states
+    change, their storage does not; ``cross_kv`` keeps its storage and its
+    bits.  Bound: the cache and the params read once at the memory rate,
+    of the experts only those the step's tokens reach."""
     import torch
     from repro_torch.launch import build_step, make_host_mesh
     from repro_torch.tree import tree_leaves
@@ -3407,6 +3639,11 @@ def family_decode(phase: str, cfg, model, params, shape, gen,
     dev = model.device
     step = build_step(cfg, shape, make_host_mesh(device=dev))
     cache = model.init_cache(shape.global_batch, shape.seq_len)
+    if cfg.encoder is not None:         # what a prefill would hand on
+        cache["cross_kv"] = tuple(torch.empty(
+            (cfg.n_layers, shape.global_batch, cfg.encoder.n_frames,
+             cfg.n_kv_heads, cfg.head_dim), dtype=params["embeds"][
+                 "embed"].dtype, device=dev) for _ in CROSS)
     for t in tree_leaves(cache):
         t.normal_(generator=gen)
     cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
@@ -3452,35 +3689,41 @@ def family_decode(phase: str, cfg, model, params, shape, gen,
           "max_memory_allocated": peak})
     check([t.data_ptr() for t in tree_leaves(cache)] == ptrs,
           f"{phase}: decode did not write its cache in place")
-    after = [t[:, :, pos] if k in POSITIONAL else t
+    after = [(k, t[:, :, pos] if k in POSITIONAL else t)
              for k, t in cache_entries(cache)]
-    check(all(not torch.equal(a, b) for a, b in zip(before, after)),
-          f"{phase}: a cache entry was not written")
+    check(all(torch.equal(a, b) == (k in CROSS)
+              for b, (k, a) in zip(before, after)),
+          f"{phase}: a cache entry was not written, or cross_kv was")
     check(bool(torch.isfinite(logits).all()) and logits.shape
           == (shape.global_batch, cfg.padded_vocab), f"{phase}: decode logits")
     check(ops_launches() == launches0, f"{phase}: decode launched kernels")
 
 
 def phase_family_serve(arch: str) -> dict:
-    """Cells M, N, O: ``arch`` at its published widths in bf16 (the depth
-    of ``SERVE_CELLS``), seeded random weights.
+    """Cells M, N, O and Q: ``arch`` at its published widths in bf16 (the
+    depth of ``SERVE_CELLS``), seeded random weights.
 
-    * prefill: ``prefill_cell`` of the cell's tokens at batch 1 under
-      "pallas" (jamba: one flash launch a prefill, its attention layer;
-      deepseek-v2's MLA takes the blockwise loop, dk != dv, and rwkv6 has
-      no attention: no launch, and the "blockwise" prefill bit-equal),
-      then ``AFTER_PREFILL_STEPS`` decode steps from it;
+    * prefill: ``prefill_cell`` of the cell's tokens (whisper: at batch 32
+      beside seeded bf16 stub frames) under "pallas" (jamba: one flash
+      launch a prefill, its attention layer; whisper: one a decoder layer,
+      its encoder's 1,500 frames and the cross-attention take the
+      blockwise loop; deepseek-v2's MLA takes the blockwise loop, dk !=
+      dv, and rwkv6 has no attention: no launch, and the "blockwise"
+      prefill bit-equal), then ``AFTER_PREFILL_STEPS`` decode steps from
+      it;
     * decode: ``family_decode`` at the cell's decode shape;
-    * rwkv6: the serve loop, as cell D's;
+    * rwkv6 and whisper: the serve loop, as cell D's (whisper's prefills
+      each batch beside its frames, under "pallas");
     * prefill against teacher-forced decode (the recurrent states after the
-      prompt count as the cache), bf16 within ``cache_limit``, f32 within
+      prompt count as the cache; whisper's ``cross_kv`` from a prefill of
+      the same frames), bf16 within ``cache_limit``, f32 within
       ``F32_REL_TOL`` with top-1 equal on 3 of 4 rows; a config with
       experts at a drop-free capacity with the decode's routing held, as
       ``moe_serve``.  The f32 check runs on ``f32_layers`` full-width
       layers after the bf16 params are freed.
 
-    Returns the launches of the timed prefills (zeroed before them; what
-    follows launches nothing)."""
+    Returns the launches of the timed prefills and the serve loop (zeroed
+    before them; decode launches nothing)."""
     import numpy as np
     import torch
     from repro_torch.configs import SHAPES, get_config
@@ -3497,14 +3740,17 @@ def phase_family_serve(arch: str) -> dict:
     model = build_model(cfg, dtype=torch.bfloat16, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (PREFILL_BATCH, cell["prefill"]), generator=gen,
-                           device=dev, dtype=torch.int32)
-    logits, cache, launches = prefill_cell(phase, cfg, model, params,
-                                           {"tokens": tokens}, reduced)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (cell["prefill_batch"], cell["prefill"]),
+        generator=gen, device=dev, dtype=torch.int32)}
+    if cfg.encoder is not None:
+        batch["frontend_embeds"] = stub_frames(
+            cfg, cell["prefill_batch"], np.random.default_rng(5), dev)
+    logits, cache, launches = prefill_cell(phase, cfg, model, params, batch,
+                                           reduced)
     decode_after_prefill(phase, model, params, logits, cache,
                          AFTER_PREFILL_STEPS, cell["prefill"])
-    del logits, cache, tokens
+    del logits, cache, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3514,12 +3760,16 @@ def phase_family_serve(arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if cell["serve_loop"]:
-        serve_loop(phase, cfg, model, params, ops_launches())
+        _, launches = serve_loop(phase, cfg, model, params, ops_launches())
 
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
     ).to(dev)
+    # an encoder-decoder's stub frames, bf16 whatever the model's dtype, as
+    # serve() draws them
+    frames = None if cfg.encoder is None else stub_frames(
+        cfg, SERVE_BATCH, rng, dev)
     for dtype in (torch.bfloat16, torch.float32):
         c = cfg
         if dtype == torch.float32:
@@ -3532,10 +3782,12 @@ def phase_family_serve(arch: str) -> dict:
             torch.Generator(device=dev).manual_seed(0))
         limit = cache_limit(cfg) if dtype == torch.bfloat16 else F32_REL_TOL
         with RouteHold() as hold:
-            dec = decode_built(m, p, prompts, SERVE_PROMPT + SERVE_NEW)
+            dec = decode_built(m, p, prompts, SERVE_PROMPT + SERVE_NEW,
+                               frames)
             if c.moe is not None:
                 hold.replay(hold.decode_plan(moe_layers(c)))
-            r = prefill_vs_decode(m, p, prompts, *dec, row_limit=limit)
+            r = prefill_vs_decode(m, p, prompts, *dec, row_limit=limit,
+                                  frames=frames)
         name = str(dtype).removeprefix("torch.")
         emit({"phase": phase, "part": "prefill_vs_decode", "dtype": name,
               "n_layers": c.n_layers, **reduced, "limit": limit,
@@ -3558,7 +3810,9 @@ def phase_family_serve(arch: str) -> dict:
 def _family_run(arch: str, device: str, init_np):
     """Reduced ``arch`` in f32: loss and aux loss under "blockwise" (the
     training impl), a prefill under "pallas" and ``FAMILY_PARITY_STEPS``
-    teacher-forced decode steps, from the same params and seeded inputs."""
+    teacher-forced decode steps, from the same params and seeded inputs
+    (whisper's stub frames in bf16, as ``serve`` passes them, its decode
+    against the prefill's ``cross_kv``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3575,7 +3829,12 @@ def _family_run(arch: str, device: str, init_np):
     if cfg.frontend == "vision":
         b["frontend_embeds"] = rng.standard_normal(
             (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio":
+        b["frontend_embeds"] = rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
     b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    if cfg.frontend == "audio":
+        b["frontend_embeds"] = b["frontend_embeds"].to(torch.bfloat16)
     with torch.no_grad():
         total, m = model.loss_fn(params, b)
     attention.set_attention_impl("pallas")
@@ -3585,6 +3844,8 @@ def _family_run(arch: str, device: str, init_np):
     finally:
         attention.set_attention_impl("blockwise")
     dec = model.init_cache(2, FAMILY_PARITY_STEPS)
+    if cfg.encoder is not None:
+        dec["cross_kv"] = cache["cross_kv"]
     steps = []
     for pos in range(FAMILY_PARITY_STEPS):
         lg, dec = model.decode_step(params, dec,
@@ -3598,13 +3859,15 @@ def _family_run(arch: str, device: str, init_np):
 
 def phase_reduced_family_parity() -> None:
     """The reduced qwen2-7b, phi-3-vision (with patch embeddings),
-    granite-moe, deepseek-v2 (MLA), jamba (the hybrid, 16 layers) and
-    rwkv6 in f32, card against CPU from the same params: loss and aux loss
-    within rtol 1e-4, prefill logits, every cache entry and 4 decode
+    granite-moe, deepseek-v2 (MLA), jamba (the hybrid, 16 layers), rwkv6
+    and whisper (2 + 2 layers, 16 bf16 stub frames) in f32, card against
+    CPU from the same params: loss and aux loss within rtol 1e-4, prefill
+    logits, every cache entry (whisper's ``cross_kv`` too) and 4 decode
     steps' logits within atol 1e-4 / rtol 1e-4 (f32 sums in other orders,
     as ``reduced_serve_parity``); the card's prefill launches the flash
-    kernel once a layer of kind "a" (jamba: 2 of 16; deepseek and rwkv6:
-    none)."""
+    kernel by ``flash_launches`` (once a layer of kind "a"; jamba: 2 of
+    16; deepseek and rwkv6: none; whisper: its 2 decoder layers and, at
+    16 frames, its 2 encoder layers, not causal)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import to_numpy
@@ -3618,9 +3881,9 @@ def phase_reduced_family_parity() -> None:
         before = ops.flash_attention_op.launches
         card = _family_run(arch, "cuda", init)
         flash = ops.flash_attention_op.launches - before
-        check(flash == attention_layers(cfg),
-              f"{arch}: the card's prefill launched the flash kernel {flash} "
-              f"times for {attention_layers(cfg)} attention layers")
+        want = flash_launches(cfg, FAMILY_PARITY_SEQ)
+        check(flash == want, f"{arch}: the card's prefill launched the flash "
+                             f"kernel {flash} times, want {want}")
         cpu = _family_run(arch, "cpu", init)
         errs = {k: abs(card[k] - cpu[k]) for k in ("total", "loss",
                                                    "aux_loss")}
@@ -3686,6 +3949,8 @@ def main() -> int:
     dense_7b_launches = phase_qwen2_7b_serve()
     family_launches = {SERVE_CELLS[a]["phase"]: phase_family_serve(a)
                        for a in SERVE_CELLS}
+    family_launches["whisper_train"] = phase_whisper_train()
+    family_launches["rwkv_train"] = phase_rwkv_train()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -91,7 +91,8 @@ def prefill_pieces(params, tokens, cfg):
             h = span("wo_residual", lambda: h + o.reshape(
                 *o.shape[:2], -1) @ p["mix"]["wo"])
             hn = span("norm", lambda: ly.apply_norm(cfg.norm, p["norm2"], h))
-            h = span("mlp_residual", lambda: h + ly.apply_mlp(p["mlp"], hn))
+            h = span("mlp_residual", lambda: h + ly.apply_mlp(p["mlp"], hn,
+                                                            act=cfg.act))
         span("final_norm_unembed", lambda: ly.unembed(
             params["embeds"], ly.apply_norm(cfg.norm, params["final_norm"],
                                             h)[:, -1]))
@@ -133,7 +134,8 @@ def decode_pieces(params, cache, tokens, pos, cfg):
             h = span("wo_residual", lambda: h + o.reshape(
                 h.shape[0], 1, -1) @ p["mix"]["wo"])
             hn = span("norm", lambda: ly.apply_norm(cfg.norm, p["norm2"], h))
-            h = span("mlp_residual", lambda: h + ly.apply_mlp(p["mlp"], hn))
+            h = span("mlp_residual", lambda: h + ly.apply_mlp(p["mlp"], hn,
+                                                            act=cfg.act))
         span("final_norm_unembed", lambda: ly.unembed(
             params["embeds"], ly.apply_norm(cfg.norm, params["final_norm"],
                                             h)[:, -1]))

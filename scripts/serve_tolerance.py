@@ -7,9 +7,9 @@ phase, on one card.
 Two checks of that phase hold one bf16 path through the full-width
 Qwen2-0.5B (24 layers, random weights; ``--arch`` names another config,
 as ``moe_serve`` runs granite-moe-1b-a400m, ``qwen2_7b_serve`` qwen2-7b
-and cells M-O deepseek-v2-236b, jamba-v0.1-52b and rwkv6-1.6b at their
-cells' depth, prefill length and f32 depth, ``chip_smoke.SERVE_CELLS``)
-against another:
+and cells M-O and Q deepseek-v2-236b, jamba-v0.1-52b, rwkv6-1.6b and
+whisper-tiny at their cells' depth, prefill length and batch and f32
+depth, ``chip_smoke.SERVE_CELLS``) against another:
 
 * ``prefill_32k``: the 32k prefill (batch 1) under "pallas" against the
   same prefill under "blockwise": logits, k and v, each as its largest
@@ -46,6 +46,21 @@ way in the prefill only (``chip_smoke.py``'s cells M-O):
   chunks (the decays left alone);
 * ``fp8_ckv`` (MLA): the latent ckv rounded through float8, in the
   attention and in the cache.
+
+An encoder-decoder (``--arch whisper-tiny``, cell Q) gets three of its
+own, planted the same way:
+
+* ``cross_causal``: the cross-attention under a causal mask, token t
+  seeing frames 0..t only;
+* ``frames_late``: the encoder's frames shifted one step late, frame f
+  where f + 1 belongs;
+* ``positions_late``: the decoder's sinusoidal positions one step late,
+  token t at position t - 1.
+
+Its prefill is cell Q's, ``prefill_32k`` at batch 32 beside bf16 stub
+frames (``chip_smoke.stub_frames``) from a numpy generator seeded
+5 + seed, and its prefill against decode draws frames from the prompts'
+generator, as ``serve`` does.
 
 A config without an attention layer launches no kernel: its "pallas" and
 "blockwise" prefills run the same code, so only the prefill-vs-decode
@@ -97,7 +112,7 @@ def faults(cfg):
     ``sound`` replaces nothing."""
     import torch
     from repro_torch.kernels.ops import flash_attention_op
-    from repro_torch.models import attention, mamba, rwkv
+    from repro_torch.models import attention, encdec, mamba, rwkv
 
     def leak_next(q, k, v, **kw):
         q1 = torch.cat([q[:, :, :1], q], 2)
@@ -147,6 +162,31 @@ def faults(cfg):
                    fp8_wkv=(rwkv, "_wkv_chunk", fp8_wkv))
     if "l" in kinds:
         out["fp8_ckv"] = (attention, "_mla_latent", fp8_ckv)
+    if cfg.encoder is not None:
+        blockwise, encode = attention.blockwise_attention, encdec.encode
+        positions, n_frames = encdec.sinusoidal_positions, \
+            cfg.encoder.n_frames
+
+        def cross_causal(q, k, v, *, causal, **kw):
+            # the cross-attention is the call whose keys are the frames
+            return blockwise(q, k, v, causal=causal or k.shape[1] !=
+                             q.shape[1], **kw)
+
+        def frames_late(params, frames, c):
+            return encode(params, torch.cat([frames[:, :1], frames[:, :-1]],
+                                            1), c)
+
+        def positions_late(n, d, *, start=0, **kw):
+            if n == n_frames and start == 0:          # the encoder's table
+                return positions(n, d, **kw)
+            late = positions(n, d, start=max(start - 1, 0), **kw)
+            return late if start else torch.cat([late[:1], late[:-1]])
+
+        out.update(cross_causal=(attention, "blockwise_attention",
+                                 cross_causal),
+                   frames_late=(encdec, "encode", frames_late),
+                   positions_late=(encdec, "sinusoidal_positions",
+                                   positions_late))
     return out
 
 
@@ -205,7 +245,8 @@ def main() -> int:
     if vision:
         shape = dataclasses.replace(shape, seq_len=cs.VLM_SEQ)
     if cell:
-        shape = dataclasses.replace(shape, seq_len=cell["prefill"])
+        shape = dataclasses.replace(shape, seq_len=cell["prefill"],
+                                    global_batch=cell["prefill_batch"])
     prefill = build_step(cfg, shape, mesh)
     # with no attention layer the two prefills run the same code
     read_prefill = cs.attention_layers(cfg) > 0
@@ -248,10 +289,14 @@ def main() -> int:
                          cfg.d_model), generator=gen, device=dev
                     ).to(torch.bfloat16)}
             else:
+                gen = torch.Generator(device=dev).manual_seed(5 + seed)
                 batch = {"tokens": torch.randint(
-                    0, cfg.vocab_size, (cs.PREFILL_BATCH, shape.seq_len),
-                    generator=torch.Generator(device=dev).manual_seed(
-                        5 + seed), device=dev, dtype=torch.int32)}
+                    0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+                    generator=gen, device=dev, dtype=torch.int32)}
+                if cfg.encoder is not None:
+                    batch["frontend_embeds"] = cs.stub_frames(
+                        cfg, shape.global_batch,
+                        np.random.default_rng(5 + seed), dev)
             attention.set_attention_impl("blockwise")
             hold.record()
             ref = prefill.fn(params, batch) if read_prefill else None
@@ -280,6 +325,8 @@ def main() -> int:
             prompts = torch.from_numpy(np.stack([
                 rng.integers(0, cfg.vocab_size, cs.SERVE_PROMPT)
                 .astype(np.int32) for _ in range(cs.SERVE_BATCH)])).to(dev)
+            frames = None if cfg.encoder is None else cs.stub_frames(
+                cfg, cs.SERVE_BATCH, rng, dev)
             for dtype, m in models.items():
                 if cell and dtype == torch.float32:
                     # the cell's f32 check: its own depth, from the seed
@@ -293,7 +340,7 @@ def main() -> int:
                     p = tree_map(lambda t: t if t.dtype == torch.float32
                                  else t.to(dtype), params)
                 hold.record()
-                dec = cs.decode_built(m, p, prompts, max_len)
+                dec = cs.decode_built(m, p, prompts, max_len, frames)
                 plan = hold.decode_plan(cs.moe_layers(m.config)) \
                     if held else None
                 limit = (limit_bf16 if dtype == torch.bfloat16
@@ -303,7 +350,8 @@ def main() -> int:
                         hold.replay(plan)
                     with planted(op):
                         r = cs.prefill_vs_decode(m, p, prompts, *dec,
-                                                 row_limit=limit)
+                                                 row_limit=limit,
+                                                 frames=frames)
                     rows = r.pop("rows")
                     record("prefill_vs_decode",
                            str(dtype).removeprefix("torch."), fault, seed,

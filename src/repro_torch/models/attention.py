@@ -18,6 +18,11 @@ in the reference.  Decode (``decode_attention``, ``gqa_decode``,
 and writes the new position into the cache tensors in place (the reference
 donates the cache to ``jit`` for the same effect).
 
+Whisper's cross-attention is ``gqa_forward(xattn_kv=(k, v))`` over the
+encoder's keys and values (no mask, no rope) and, in decode,
+``gqa_cross_decode``, one token against them through
+``decode_attention``.
+
 DeepSeek-V2's latent attention (``init_mla``, ``mla_forward``,
 ``mla_decode``) caches the compressed latent ``{ckv, krope}`` instead of
 k and v: its prefill expands it into per-head keys and values for
@@ -102,20 +107,24 @@ def _flash_fwd_core(q, k, v, causal, q_offset, kv_block, scale):
     for start in range(0, skv, kv_block):
         kk = k[:, start:start + kv_block]
         vv = v[:, start:start + kv_block]
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                              kk.to(torch.float32)) * scale
+        # one f32 [B, KVH, G, Sq, kv_block] buffer a block, scaled, masked
+        # and exponentiated in place (the same values as out of place):
+        # at whisper's 32k cross-attention prefill it is 12.6 GB
+        p = torch.einsum("bqhgd,bkhd->bhgqk", qg, kk.to(torch.float32))
+        p.mul_(scale)
         if causal:
-            scores = scores.masked_fill(
+            p.masked_fill_(
                 ~_block_mask(sq, kv_block, q_offset, start, q.device),
                 NEG_INF)
-        m_new = torch.maximum(m, torch.amax(scores, dim=-1))
+        m_new = torch.maximum(m, torch.amax(p, dim=-1))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(scores - m_new[..., None])
+        p.sub_(m_new[..., None]).exp_()
         l = l * alpha + torch.sum(p, dim=-1)
         o = (o * alpha[..., None]
              + torch.einsum("bhgqk,bkhd->bhgqd", p.to(vv.dtype), vv
                             ).to(torch.float32))
         m = m_new
+        del p
     l_safe = torch.clamp_min(l, 1e-30)
     out = (o / l_safe[..., None]).permute(0, 3, 1, 2, 4)
     lse = m + torch.log(l_safe)
@@ -254,9 +263,23 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, n: int, *,
     return p
 
 
+def _promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type JAX gives ``x @ w``: bf16 input against f32
+    weights (whisper's bf16 stub frames in an f32 model) is widened, as
+    ``jnp.matmul`` promotes; ``torch.matmul`` refuses mixed types."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
+def _q_proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ wq`` (plus ``bq``), x widened as JAX's promotion would."""
+    q = _promote(x, p["wq"]) @ p["wq"]
+    return q + p["bq"] if "bq" in p else q
+
+
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = _promote(x, p["wq"])
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -268,15 +291,27 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 causal: bool = True, kv_block: int = 512,
+                xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (train / prefill).  Returns (out, kv) where
-    kv is the cache contribution {k, v}: [B, S, KVH, D] after RoPE."""
+    kv is the cache contribution {k, v}: [B, S, KVH, D] after RoPE.
+
+    With ``xattn_kv = (k, v)`` (the encoder's, [B, F, KVH, D]) this is
+    cross-attention: q (with ``bq``) from x, k and v as given, no mask and
+    no rope.  The reference also projects x's own k and v there and
+    discards them (XLA drops that work under ``jit``); they are not
+    computed here."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
-    if cfg.rope:
-        pos = torch.arange(s, device=x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+    if xattn_kv is not None:
+        q = _q_proj(p, x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        k, v = xattn_kv
+        causal = False
+    else:
+        q, k, v = _qkv(p, x, cfg)
+        if cfg.rope:
+            pos = torch.arange(s, device=x.device)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
     out = blockwise_attention(q, k, v, causal=causal, kv_block=kv_block)
     return out.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
 
@@ -303,6 +338,15 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
     return out.reshape(b, 1, -1) @ p["wo"], {"k": cache["k"],
                                              "v": cache["v"]}
+
+
+def gqa_cross_decode(p: Params, x: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Cross-attention of one decode token x [B, 1, d] against the fixed
+    encoder k, v [B, F, KVH, D], its first ``n_valid`` frames."""
+    q = _q_proj(p, x).reshape(x.shape[0], -1, k.shape[3])     # [B, H, D]
+    out = decode_attention(q, k, v, n_valid)
+    return out.reshape(x.shape[0], 1, -1) @ p["wo"]
 
 
 def quantize_kv(t: torch.Tensor, *, reciprocal: bool = True

@@ -1,5 +1,6 @@
 """Shared building blocks of the decoder: rmsnorm and layernorm, the
-activations, rope, the gated MLP, tied or untied embeddings and the
+activations, rope, whisper's sinusoidal positions, the dense MLP (gated
+for silu, with or without biases), tied or untied embeddings and the
 padded-vocab loss.
 
 Functional like the reference (``repro/models/layers.py``): ``init_*``
@@ -108,23 +109,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, *, start: int = 0,
+                         device: torch.device = None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position embeddings [n, d] f32 of
+    the positions ``start .. start + n - 1``: ``pos / 10000 ** (dim / d)``
+    for the even dims, then ``[sin | cos]``.  Each element depends on its
+    own position only, so a decode step's row (``start`` = its position)
+    is the prefill table's row bit for bit."""
+    pos = torch.arange(start, start + n, dtype=torch.float32,
+                       device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # --------------------------------------------------------------------------- #
-# dense gated MLP
+# dense MLP: gated for silu, plain otherwise; optional biases
 # --------------------------------------------------------------------------- #
 def init_mlp(gen: torch.Generator, lead: Sequence[int], d: int, d_ff: int,
-             *, dtype: torch.dtype, device: torch.device) -> Params:
-    """Gated MLP params ``{up, down, gate}`` with leading dims ``lead``
-    (``(L,)`` for a stacked layer's)."""
+             *, act: str, bias: bool, dtype: torch.dtype,
+             device: torch.device) -> Params:
+    """MLP params with leading dims ``lead`` (``(L,)`` for a stacked
+    layer's): ``{up, down}``, plus ``gate`` for silu (the reference gates
+    only that activation) and ``up_b``/``down_b`` (zeros) with ``bias``."""
     lead = tuple(lead)
     kw = dict(dtype=dtype, device=device)
-    return {"up": dense_init(gen, lead + (d, d_ff), **kw),
-            "down": dense_init(gen, lead + (d_ff, d), **kw),
-            "gate": dense_init(gen, lead + (d, d_ff), **kw)}
+    p: Params = {"up": dense_init(gen, lead + (d, d_ff), **kw),
+                 "down": dense_init(gen, lead + (d_ff, d), **kw)}
+    if act == "silu":
+        p["gate"] = dense_init(gen, lead + (d, d_ff), **kw)
+    if bias:
+        p["up_b"] = torch.zeros(lead + (d_ff,), **kw)
+        p["down_b"] = torch.zeros(lead + (d,), **kw)
+    return p
 
 
-def apply_mlp(p: Params, x: torch.Tensor, *, act: str = "silu"
-              ) -> torch.Tensor:
-    return (activation(act)(x @ p["up"]) * (x @ p["gate"])) @ p["down"]
+def apply_mlp(p: Params, x: torch.Tensor, *, act: str) -> torch.Tensor:
+    up = x @ p["up"]
+    if "up_b" in p:
+        up = up + p["up_b"]
+    h = activation(act)(up)
+    if "gate" in p:
+        h = h * (x @ p["gate"])
+    out = h @ p["down"]
+    if "down_b" in p:
+        out = out + p["down_b"]
+    return out
 
 
 # --------------------------------------------------------------------------- #

@@ -43,7 +43,7 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int], *,
     """MoE params with leading dims ``lead``: ``router`` [.., d, E] in f32,
     ``w_gate``/``w_up`` [.., E, d, f] and ``w_down`` [.., E, f, d] in
     ``dtype``, all drawn with std 1/sqrt(d) as the reference draws them,
-    and ``shared`` (a gated MLP of width f * n_shared) when the config has
+    and ``shared`` (the dense MLP of width f * n_shared) when the config has
     shared experts."""
     moe = cfg.moe
     d, f, e = cfg.d_model, moe.d_expert, moe.n_experts
@@ -58,7 +58,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int], *,
         "w_down": normal(gen, lead + (e, f, d), std, **kw),
     }
     if moe.n_shared:
-        p["shared"] = init_mlp(gen, lead, d, f * moe.n_shared, **kw)
+        p["shared"] = init_mlp(gen, lead, d, f * moe.n_shared, act=cfg.act,
+                               bias=False, **kw)
     return p
 
 

@@ -1,5 +1,7 @@
 """The decoder stack: the reference's ``repro/models/transformer.py`` for
-every decoder-only config, with the stubbed vision prefix.
+every config, with the stubbed vision prefix; an encoder-decoder config
+(whisper) adds ``encoder`` and ``cross`` params and its ``forward`` and
+``decode_step`` go to ``models/encdec.py``.
 
 A layer is a token mixer and an MLP, each behind a pre-norm (rmsnorm or
 layernorm) and a residual add.  ``cfg.layer_kind(idx)`` picks the mixer:
@@ -9,7 +11,8 @@ time mix (``models/rwkv.py``).  The MLP is the RWKV channel mix on an "r"
 layer, the experts ``{router, w_gate, w_up, w_down[, shared]}``
 (``models/moe.py``: an f32 router beside the model's dtype) on a layer
 where ``cfg.moe.is_moe_layer(idx)`` ("all", "odd" or "even" layers), and
-a gated MLP ``{up, down, gate}`` otherwise.  An MoE layer adds its
+the dense MLP otherwise: ``{up, down}``, with ``gate`` for silu and
+``up_b``/``down_b`` with ``cfg.mlp_bias``.  An MoE layer adds its
 load-balance loss to the stack's auxiliary loss, and ``loss_fn`` returns
 ``loss + AUX_LOSS_COEF * aux``.
 
@@ -75,13 +78,6 @@ from .moe import init_moe, moe_forward
 AUX_LOSS_COEF = 0.01
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (whisper) is not ported yet "
-            "(ROADMAP queue A item 2.7)")
-
-
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
     return cfg.moe is not None and cfg.moe.is_moe_layer(idx)
 
@@ -110,7 +106,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, idx: int, n: int, *,
     elif _is_moe_layer(cfg, idx):
         mlp = init_moe(gen, cfg, (n,), **kw)
     else:
-        mlp = init_mlp(gen, (n,), cfg.d_model, cfg.d_ff, **kw)
+        mlp = init_mlp(gen, (n,), cfg.d_model, cfg.d_ff, act=cfg.act,
+                       bias=cfg.mlp_bias, **kw)
     return {"mix": mix, "mlp": mlp,
             "norm1": init_norm(cfg.norm, (n, cfg.d_model), **kw),
             "norm2": init_norm(cfg.norm, (n, cfg.d_model), **kw)}
@@ -118,7 +115,6 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, idx: int, n: int, *,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
                 dtype: torch.dtype, device: torch.device) -> Params:
-    _check_supported(cfg)
     gs = cfg.group_size
     kw = dict(dtype=dtype, device=device)
     embeds = init_embeddings(gen, cfg.padded_vocab, cfg.d_model,
@@ -128,9 +124,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     else:
         layers = tuple(init_layer(gen, cfg, s, cfg.n_groups, **kw)
                        for s in range(gs))
-    return {"embeds": embeds,
-            "final_norm": init_norm(cfg.norm, (cfg.d_model,), **kw),
-            "layers": layers}
+    p = {"embeds": embeds,
+         "final_norm": init_norm(cfg.norm, (cfg.d_model,), **kw),
+         "layers": layers}
+    if cfg.encoder is not None:
+        from . import encdec
+        p["encoder"] = encdec.init_encoder(gen, cfg, **kw)
+        p["cross"] = encdec.init_cross_layers(gen, cfg, **kw)
+    return p
 
 
 # --------------------------------------------------------------------------- #
@@ -262,8 +263,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, *, kv_int8: bool = False,
                device: Union[str, torch.device] = "cpu") -> Params:
     """Zero cache in the params' layout: every leaf stacked ``[L, ...]``,
-    or a tuple of ``group_size`` slots stacked ``[G, ...]``."""
-    _check_supported(cfg)
+    or a tuple of ``group_size`` slots stacked ``[G, ...]``.  An
+    encoder-decoder's decode also needs a prefill's ``cross_kv``, which
+    the caller adds (``models/encdec.py``)."""
     gs = cfg.group_size
     n = cfg.n_layers if gs == 1 else cfg.n_groups
 
@@ -342,6 +344,10 @@ def forward(params: Params, batch: Dict[str, torch.Tensor],
             collect_cache: bool = False
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (the final-normed h, the cache or None, the aux loss)."""
+    if cfg.encoder is not None:
+        from . import encdec
+        return encdec.encdec_forward(params, batch, cfg, remat=remat,
+                                     collect_cache=collect_cache)
     h = constrain(embed_inputs(params, batch, cfg), "residual")
     h, cache, aux = stack_forward(params, h, cfg, remat=remat,
                                   collect_cache=collect_cache)
@@ -378,6 +384,9 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     place."""
     pos = int(pos)
     with torch.no_grad():
+        if cfg.encoder is not None:
+            from . import encdec
+            return encdec.encdec_decode_step(params, cache, tokens, pos, cfg)
         h = embed_tokens(params["embeds"], tokens)
         h, cache = stack_decode(params, h, cache, pos, cfg)
         h = apply_norm(cfg.norm, params["final_norm"], h)

@@ -680,3 +680,77 @@ class TestSlice8OnCard:
                 assert a.is_cuda
                 torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
                                            msg=name)
+
+
+@pytest.mark.cuda
+class TestWhisperOnCard:
+    """The reduced whisper-tiny (2 + 2 layers, 4/2 heads of 32, 16 frames)
+    in f32 on the card against the CPU from the same params, with bf16
+    stub frames as ``serve`` passes them: loss, the "pallas" prefill's
+    logits, self cache and ``cross_kv``, 4 decode steps, within atol 1e-4
+    / rtol 1e-4.  The prefill launches the flash kernel by the reference's
+    dispatch rule (``Sq == Skv`` and a multiple of 16): the decoder's 2
+    layers, the encoder's 2 (16 frames, not causal), and the cross
+    layers' 2 only when the tokens are as many as the frames (16: 6
+    launches; 64: 4).  Decode launches nothing, writes the self cache in
+    place and leaves ``cross_kv`` as it was."""
+
+    @pytest.mark.parametrize("seq, launches", [(16, 6), (64, 4)])
+    def test_reduced_whisper_card_matches_cpu(self, seq, launches):
+        _need_card()
+        from repro_torch.configs import get_config
+        from repro_torch.models import attention, build_model
+        from repro_torch.tree import tree_flatten_with_path, tree_map
+        cfg = get_config("whisper-tiny").reduced()
+        models = {d: build_model(cfg, dtype=torch.float32, device=d)
+                  for d in ("cpu", "cuda")}
+        params = models["cpu"].init(torch.Generator().manual_seed(0))
+        params = {"cpu": params,
+                  "cuda": tree_map(lambda t: t.cuda(), params)}
+        g = torch.Generator().manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=g)
+        frames = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                             generator=g).to(torch.bfloat16)
+        out = {}
+        for dev, model in models.items():
+            b = {"tokens": toks.to(dev), "frontend_embeds": frames.to(dev)}
+            with torch.no_grad():
+                loss, _ = model.loss_fn(params[dev], {
+                    **b, "labels": torch.roll(b["tokens"], -1, 1)})
+            before = ops.flash_attention_op.launches
+            attention.set_attention_impl("pallas")
+            try:
+                logits, cache = model.prefill(params[dev], b)
+            finally:
+                attention.set_attention_impl("blockwise")
+            n_flash = ops.flash_attention_op.launches - before
+            dec = model.init_cache(2, 8)
+            dec["cross_kv"] = cache["cross_kv"]
+            cross = [t.clone() for t in cache["cross_kv"]]
+            ptrs = [t.data_ptr() for _, t in tree_flatten_with_path(dec)[0]]
+            steps = []
+            before = ops.flash_attention_op.launches
+            for pos in range(4):
+                lg, dec = model.decode_step(params[dev], dec,
+                                            b["tokens"][:, pos:pos + 1], pos)
+                steps.append(lg)
+            assert ops.flash_attention_op.launches == before
+            assert [t.data_ptr() for _, t in
+                    tree_flatten_with_path(dec)[0]] == ptrs
+            assert all(torch.equal(a, c)
+                       for a, c in zip(dec["cross_kv"], cross))
+            out[dev] = (loss, logits, cache, torch.stack(steps), dec,
+                        n_flash)
+        assert out["cuda"][5] == launches and out["cpu"][5] == 0
+        for i in (0, 1, 3):
+            torch.testing.assert_close(out["cuda"][i].cpu(), out["cpu"][i],
+                                       rtol=1e-4, atol=1e-4)
+        for i in (2, 4):
+            card = tree_flatten_with_path(out["cuda"][i])[0]
+            cpu = tree_flatten_with_path(out["cpu"][i])[0]
+            assert [n for n, _ in card] == [n for n, _ in cpu]
+            assert any(n.startswith("cross_kv/") for n, _ in card)
+            for (name, a), (_, b) in zip(card, cpu):
+                assert a.is_cuda
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                           msg=name)

@@ -1,19 +1,24 @@
-"""The model families of slices 7 and 8 on the port, against the JAX
+"""The model families of slices 7-9 on the port, against the JAX
 package: qwen2-7b (dense, 28/4 heads), phi-3-vision-4.2b (dense with the
 stubbed patch-embedding prefix), granite-moe-1b-a400m (sparse experts on
 every layer), deepseek-v2-236b (latent attention, shared and routed
 experts), jamba-v0.1-52b (the hybrid: groups of 8 layers, 7 mamba and one
-attention, experts on odd layers; 16 layers reduced) and rwkv6-1.6b (the
-RWKV6 time and channel mix), each at its reduced size.
+attention, experts on odd layers; 16 layers reduced), rwkv6-1.6b (the
+RWKV6 time and channel mix) and whisper-tiny (the encoder-decoder, with
+stub audio frames), each at its reduced size.
 
+* Every registered config builds, makes a cache and, reduced, inits and
+  serves a request.
 * Twins of ``tests/test_configs_smoke.py``'s ``test_train_step_smoke``,
-  ``test_prefill_decode_smoke`` and ``test_decode_matches_prefill`` for the
-  three configs, in bf16 as the reference runs them, with its tolerances
-  (rtol 0.15 / atol 0.35 for prefill against teacher-forced decode).  The
-  MoE check runs at a drop-free capacity, as the reference's does: a
-  prefill chunk and a one-token step have other capacities.  The reference
-  skips the vision config there (the prefix shifts positions); the twin
-  holds its text-only prefill, what ``serve`` runs, against decode.
+  ``test_prefill_decode_smoke`` and ``test_decode_matches_prefill`` for
+  these configs, in bf16 as the reference runs them (bf16 frames too),
+  with its tolerances (rtol 0.15 / atol 0.35 for prefill against
+  teacher-forced decode).  The MoE check runs at a drop-free capacity, as
+  the reference's does: a prefill chunk and a one-token step have other
+  capacities.  The reference skips the vision config there (the prefix
+  shifts positions); the twin holds its text-only prefill, what ``serve``
+  runs, against decode.  It skips the encoder-decoder too; the twin
+  decodes it against its prefill's ``cross_kv``, as ``serve`` does.
 * Port against JAX on params initialized in JAX and converted through
   numpy, in f32: total loss, the loss and the aux loss within 1e-5, grads
   within rtol 1e-4 / atol 1e-6 (as ``test_torch_model.py``: the same f32
@@ -54,14 +59,14 @@ from repro_torch.dist.flatbuf import flat_compress_roundtrip
 from repro_torch.interop import to_numpy, to_torch
 from repro_torch.kernels import flash_attention_op
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.launch.serve import serve
+from repro_torch.launch.serve import Request, serve
 from repro_torch.models import build_model, text_len, value_and_grad
 from repro_torch.models import transformer as ttf
 from repro_torch.ps.server import ParameterServer
 from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
 ARCHS = ["qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
-         "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b"]
+         "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b", "whisper-tiny"]
 # the embedding's gradient against a float64 run of the port (its casts to
 # f32 made f64), as the largest excess over rtol 1e-4: jamba (16 layers)
 # JAX 1.31e-5, the port 6.9e-6, JAX against the port 8.8e-6; rwkv6 JAX
@@ -87,6 +92,9 @@ def _batch_np(cfg, seq, *, labels=True, seed=1):
     if cfg.frontend == "vision":
         b["frontend_embeds"] = rng.standard_normal(
             (BATCH, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio":
+        b["frontend_embeds"] = rng.standard_normal(
+            (BATCH, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
     return b
 
 
@@ -112,23 +120,25 @@ def test_registered_configs_match_reference():
 
 
 def test_only_the_encoder_decoder_is_refused():
-    """Every registered config builds but whisper-tiny (queue A item 2.7),
-    whose params, cache and serving raise."""
+    """The encoder-decoder was the one config the port refused; since
+    slice 9 none is.  Every registered config builds and makes a cache at
+    its published size and reduced (every layer kind's cache spec);
+    reduced, it inits and ``serve`` answers a request, the
+    encoder-decoder with stub frames from the request generator."""
     assert list(list_configs()) == list(j_list_configs())
     for arch in list_configs():
         for cfg in (get_config(arch), get_config(arch).reduced()):
             model = build_model(cfg, device="cpu")
-            if cfg.encoder is None:
-                ttf._check_supported(cfg)
-                for i in range(cfg.group_size):     # every layer kind
-                    assert ttf.layer_cache_spec(cfg, i, 1, 8)
-                continue
-            with pytest.raises(NotImplementedError):
-                model.init(torch.Generator().manual_seed(0))
-            with pytest.raises(NotImplementedError):
-                model.init_cache(1, 8)
-            with pytest.raises(NotImplementedError):
-                serve(model, {}, [], 1, 8)
+            for i in range(cfg.group_size):     # every layer kind
+                assert ttf.layer_cache_spec(cfg, i, 1, 8)
+            assert sorted(model.init_cache(1, 8)) == ["layers"]
+        params = model.init(torch.Generator().manual_seed(0))
+        assert ("encoder" in params) == ("cross" in params) == (
+            cfg.encoder is not None)
+        rng = np.random.default_rng(0)
+        req = Request(0, rng.integers(0, cfg.vocab_size, 4).astype(np.int32))
+        done, steps, _ = serve(model, params, [req], 1, 6, rng)
+        assert steps == 5 and len(done[0].output) == 2, arch
     assert ttf.AUX_LOSS_COEF == jtf.AUX_LOSS_COEF
 
 
@@ -175,9 +185,13 @@ def test_prefill_decode_smoke(arch, built):
     assert logits.shape == (BATCH, cfg.padded_vocab)
     assert torch.isfinite(logits.float()).all()
     dec_cache = model.init_cache(BATCH, SEQ + 8)
+    if cfg.encoder is not None:                   # as the reference's test
+        dec_cache["cross_kv"] = cache["cross_kv"]
     for (name, leaf), dec_leaf in zip(tree_flatten_with_path(cache)[0],
                                       tree_leaves(dec_cache)):
-        if name.rsplit("/", 1)[-1] in ("k", "v", "ckv", "krope"):
+        if name.startswith("cross_kv/"):          # the encoder's frames
+            assert leaf.shape[2] == cfg.encoder.n_frames, name
+        elif name.rsplit("/", 1)[-1] in ("k", "v", "ckv", "krope"):
             assert leaf.shape[2] == SEQ, name     # the prefix is cached
         else:                                     # a recurrent state
             assert leaf.shape == dec_leaf.shape, name
@@ -197,11 +211,16 @@ def test_decode_matches_prefill(arch, built):
             cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
         model = build_model(cfg, device="cpu")
     seq = 8
-    toks = torch.from_numpy(_batch_np(cfg, seq + cfg.n_frontend_tokens,
-                                      labels=False, seed=3)["tokens"])
-    # text only: a vision config serves text requests with no prefix
-    logits_pre, _ = model.prefill(params, {"tokens": toks})
+    b = _torch(_batch_np(cfg, seq + cfg.n_frontend_tokens, labels=False,
+                         seed=3), torch.bfloat16)
+    toks = b["tokens"]
+    # text only: a vision config serves text requests with no prefix; the
+    # encoder-decoder's frames feed its cross-attention
+    inputs = dict(b) if cfg.encoder is not None else {"tokens": toks}
+    logits_pre, cache_pre = model.prefill(params, inputs)
     dec_cache = model.init_cache(BATCH, seq)
+    if cfg.encoder is not None:
+        dec_cache["cross_kv"] = cache_pre["cross_kv"]
     logits = None
     for step in range(seq):
         logits, dec_cache = model.decode_step(params, dec_cache,
@@ -268,6 +287,8 @@ def test_prefill_and_decode_match(arch, pairs):
         np.testing.assert_allclose(_np(t), _np(j), rtol=1e-5, atol=2e-5,
                                    err_msg=name)
     jc, tc = jmodel.init_cache(BATCH, 8), tmodel.init_cache(BATCH, 8)
+    if cfg.encoder is not None:
+        jc["cross_kv"], tc["cross_kv"] = jcache["cross_kv"], tcache["cross_kv"]
     decode = jax.jit(jmodel.decode_step)
     toks = b["tokens"]
     for pos in range(4):

@@ -325,9 +325,11 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     assert prof.summary()["metrics"]["commits"] == res.commits
     assert aggregator_hbm_traffic(4, 1024)["ratio"] > 1.0
     from repro_torch.models import text_len
-    # and slice 8's: MLA, the jamba hybrid (mamba), rwkv6
+    # and slice 8's: MLA, the jamba hybrid (mamba), rwkv6; slice 9's
+    # encoder-decoder with stub audio frames, and its serve loop
     for arch in ("qwen2-7b", "phi-3-vision-4.2b", "granite-moe-1b-a400m",
-                 "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b"):
+                 "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-1.6b",
+                 "whisper-tiny"):
         fcfg = get_config(arch).reduced()
         fm = build_model(fcfg, dtype=torch.float32, device="cpu")
         fp = fm.init(torch.Generator().manual_seed(0))
@@ -336,13 +338,23 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
         if fcfg.frontend == "vision":
             fb["frontend_embeds"] = torch.zeros(
                 (1, fcfg.n_frontend_tokens, fcfg.d_model))
+        if fcfg.frontend == "audio":
+            fb["frontend_embeds"] = torch.ones(
+                (1, fcfg.encoder.n_frames, fcfg.d_model), dtype=torch.bfloat16)
         total, aux = fm.loss_fn(fp, {{**fb, "labels": fb["tokens"]}})
         assert torch.isfinite(total) and (float(aux["aux_loss"]) > 0) == (
             fcfg.moe is not None)
-        logits, _ = fm.prefill(fp, fb)
-        logits, _ = fm.decode_step(fp, fm.init_cache(1, 4),
-                                   fb["tokens"][:, :1], 0)
+        logits, pre = fm.prefill(fp, fb)
+        cache = fm.init_cache(1, 4)
+        if fcfg.encoder is not None:
+            cache["cross_kv"] = pre["cross_kv"]
+        logits, _ = fm.decode_step(fp, cache, fb["tokens"][:, :1], 0)
         assert torch.isfinite(logits).all()
+    import numpy as np
+    from repro_torch.launch.serve import Request, serve
+    rng = np.random.default_rng(0)
+    done, _, _ = serve(fm, fp, [Request(0, np.zeros(3, np.int32))], 1, 5, rng)
+    assert len(done[0].output) == 2
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
