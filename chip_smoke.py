@@ -153,7 +153,15 @@ toolkit.  Every line it prints is one JSON object:
    seeded by worker and step, the encoder's weights moving.
 28. ``rwkv_train`` (cell P): MLfabric-A on the whole rwkv6-1.6b (1.23 B
    parameters), 8 commits: the backward through the WKV chunks.
-29. The ``{"kernels": [...]}`` summary (seven kernels), then
+29. ``sharded`` (cell R): the full-width Qwen2-0.5B tensor-parallel on a
+   ``(pod=1, data=2, model=2)`` world of four gloo processes sharing the
+   card (DTensor's collectives staged through the host): the auto,
+   mlfabric and compressed steps at seq 4096 x batch 2, the 32k prefill
+   under "pallas" (24 flash launches a rank on 7 q heads and 1 KV head)
+   and 3 decode steps at batch 16, each against the unsharded step on
+   the card; then the reduced model in f32, card against CPU; per-rank
+   peaks beside the predicted per-rank param bytes.
+30. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -244,16 +252,21 @@ def rel_err(a, b) -> float:
 
 
 # --------------------------------------------------------------------------- #
-def phase_device():
-    import torch
+def nvidia_smi_line() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def phase_device():
+    import torch
     info = {"phase": "device", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(), "nvidia_smi": line,
+            "count": torch.cuda.device_count(),
+            "nvidia_smi": nvidia_smi_line(),
             "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(info)
     return info
@@ -3547,6 +3560,478 @@ def phase_qwen2_7b_serve() -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# slice 10: the dense decoder tensor-parallel on a model axis (cell R)
+# --------------------------------------------------------------------------- #
+SHARDED_MESH = ((1, 2, 2), ("pod", "data", "model"))
+SHARDED_TRAIN = {"auto": {}, "mlfabric": {"grad_path": "mlfabric"},
+                 "compressed": {"grad_path": "mlfabric",
+                                "compress_inter": True}}
+SHARDED_TIMED = 2                # timed steps after 1 warm-up, per config
+SHARDED_DECODE_BATCH = 16        # decode_32k's batch 128, cut to 16
+SHARDED_DECODE_STEPS = 3
+SHARDED_BF16_TOL = 3e-2          # cell B's rule: loss and params
+SHARDED_REDUCED_SEQ, SHARDED_REDUCED_BATCH = 32, 8
+SHARDED_REDUCED_DECODE = 64      # cache positions of the reduced decode
+
+
+def sharded_cache(cfg, batch: int, seq: int, dev, keep=None):
+    """A ``decode_32k``-shaped cache filled as ``serve_cell`` fills one:
+    the stacked k, then v, one layer's normals at a time from a generator
+    seeded 6 on the card.  ``keep(layer_tensor)`` cuts what each layer
+    keeps (a rank's block); by default the whole cache."""
+    import torch
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device=dev).manual_seed(6)
+    spec = tf.layer_cache_spec(cfg, 0, batch, seq, torch.bfloat16)
+    out = {}
+    for name in ("k", "v"):
+        shape, dtype = spec[name]
+        layers = []
+        for _ in range(cfg.n_layers):
+            t = torch.empty(shape, dtype=dtype, device=dev)
+            t.normal_(generator=gen)
+            layers.append(keep(t).clone() if keep else t)
+        out[name] = torch.stack(layers)
+        del layers
+    return {"layers": out}
+
+
+def sharded_inputs(cfg, dev):
+    """The seeded inputs both runs of cell R take: cell B's batches, the
+    32k prefill's tokens, and per decode step its tokens and position (the
+    last ``SHARDED_DECODE_STEPS`` of ``decode_32k``)."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import SyntheticLM
+    src = SyntheticLM(cfg.vocab_size, SHAPES["train_4k"].seq_len, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in src.batch(i, STEP_BATCH).items()}
+               for i in range(1 + SHARDED_TIMED)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, SHAPES["prefill_32k"].seq_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    seq = SHAPES["decode_32k"].seq_len
+    steps = [(torch.randint(0, cfg.vocab_size, (SHARDED_DECODE_BATCH, 1),
+                            generator=gen, device=dev, dtype=torch.int32),
+              seq - SHARDED_DECODE_STEPS + i)
+             for i in range(SHARDED_DECODE_STEPS)]
+    return batches, prompt, steps
+
+
+def sharded_shapes():
+    from repro_torch.configs import SHAPES
+    return {"train": dataclasses.replace(SHAPES["train_4k"],
+                                         global_batch=STEP_BATCH),
+            "prefill": dataclasses.replace(SHAPES["prefill_32k"],
+                                           global_batch=PREFILL_BATCH),
+            "decode": dataclasses.replace(SHAPES["decode_32k"],
+                                          global_batch=SHARDED_DECODE_BATCH)}
+
+
+def sharded_reference(out_dir: str) -> dict:
+    """Cell R's unsharded runs, on this process's world of one from the
+    same seeds: one step of each training config, the 32k prefill under
+    "pallas", and the decode steps; written to ``out_dir`` for the ranks
+    (host copies)."""
+    import torch
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.models import attention
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    cfg, model, params = _full_width_model(dev)
+    mesh = make_host_mesh(device=dev)
+    batches, prompt, steps = sharded_inputs(cfg, dev)
+    shapes = sharded_shapes()
+    t0 = time.perf_counter()
+    for name, kw in SHARDED_TRAIN.items():
+        step = build_step(cfg, shapes["train"], mesh, lr=STEP_LR,
+                          gamma=STEP_GAMMA, remat=True, **kw)
+        p, _, m = step.fn(params, momentum_sgd_init(params), batches[0])
+        torch.save({"loss": float(m["loss"]),
+                    "params": [t.cpu() for t in tree_leaves(p)]},
+                   f"{out_dir}/{name}.pt")
+        del p, m, step
+    attention.set_attention_impl("pallas")
+    try:
+        logits, cache = build_step(cfg, shapes["prefill"], mesh).fn(
+            params, {"tokens": prompt})
+    finally:
+        attention.set_attention_impl("blockwise")
+    torch.save({"logits": logits.cpu(),
+                "cache": {k: t.cpu() for k, t in cache["layers"].items()}},
+               f"{out_dir}/prefill.pt")
+    del logits, cache
+    cache = sharded_cache(cfg, SHARDED_DECODE_BATCH,
+                          shapes["decode"].seq_len, dev)
+    step = build_step(cfg, shapes["decode"], mesh)
+    out = []
+    for tok, pos in steps:
+        logits, cache = step.fn(params, cache, tok, pos)
+        out.append({"logits": logits.cpu(), "pos": pos,
+                    "rows": {k: t[:, :, pos].cpu()
+                             for k, t in cache["layers"].items()}})
+    torch.save(out, f"{out_dir}/decode.pt")
+    del cache, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"reference_s": time.perf_counter() - t0}
+
+
+def _block_err(local, ref, sl) -> float:
+    """Largest difference of a rank's block from the reference's block
+    over the reference's largest value (``_bf16_rel``'s measure)."""
+    return float((local.float().cpu() - ref[sl].float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+
+
+def sharded_rank(ref_dir: str) -> None:
+    """One rank of cell R's world (four gloo processes on the one card,
+    DTensor's collectives staged through the host): the full-width
+    training configs, the 32k prefill and the decode steps, each against
+    the unsharded reference in ``ref_dir``; then the reduced model in f32
+    on the card against the same world on the CPU.  Prints one JSON line."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.collectives import plan_reduce
+    from repro_torch.launch import build_step, init_rank, make_mesh
+    from repro_torch.models import attention, build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import params_specs
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+
+    rank, world, _ = init_rank("gloo", host_staged_collectives=True)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*SHARDED_MESH, device=dev)
+    res = {"rank": rank, "coords": mesh.coords}
+    cfg, _, full = _full_width_model(dev)
+    specs = shd.param_shardings(cfg, mesh, full)
+    res["param_bytes_predicted"] = shd.param_bytes_per_rank(
+        cfg, mesh, params_specs(cfg))
+    batches, prompt, steps = sharded_inputs(cfg, dev)
+    shapes = sharded_shapes()
+
+    def blocks(tree, spec_tree):
+        return [(t.to_local(), shd.shard_slices(mesh, s, tuple(t.shape),
+                                                mesh.coords))
+                for t, s in zip(tree_leaves(tree), tree_leaves(spec_tree))]
+
+    # -- training: auto, mlfabric, compressed -----------------------------
+    res["train"] = {}
+    for name, kw in SHARDED_TRAIN.items():
+        sp = specs if name == "auto" else tree_map(shd.strip_data, specs)
+        p = shd.shard_tree(full, mesh, sp)
+        if name == "auto":
+            res["param_bytes_held"] = sum(t.to_local().numel()
+                                          * t.element_size()
+                                          for t in tree_leaves(p))
+        o = momentum_sgd_init(p)
+        step = build_step(cfg, shapes["train"], mesh, lr=STEP_LR,
+                          gamma=STEP_GAMMA, remat=True, **kw)
+        ref = torch.load(f"{ref_dir}/{name}.pt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        losses, secs = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            p, o, m = step.fn(p, o, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                close, worst = True, 0.0
+                for (t, sl), r in zip(blocks(p, sp), ref["params"]):
+                    a, b_ = t.float().cpu(), r[sl].float()
+                    close &= bool(torch.allclose(a, b_, rtol=SHARDED_BF16_TOL,
+                                                 atol=SHARDED_BF16_TOL))
+                    worst = max(worst, float((a - b_).abs().max()))
+                first = {"loss_ref": ref["loss"], "params_close": close,
+                         "max_abs_param_diff": worst,
+                         "placements_kept": all(
+                             tuple(a.placements) == tuple(shd.placements(
+                                 mesh, s)) for a, s in zip(
+                                 tree_leaves(p), tree_leaves(sp)))}
+        res["train"][name] = {
+            **first, "losses": losses, "warmup_s": secs[0],
+            "step_s": secs[1:], "s_per_step": sum(secs[1:]) / SHARDED_TIMED,
+            "launches": ops_launches(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        del p, o, step, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- the 32k prefill under "pallas", the flash kernel on local heads --
+    p = shd.shard_tree(full, mesh, specs)
+    del full
+    heads = []
+    flash = attention.flash_attention_op
+
+    def recording(q, k, v, **kw):
+        heads.append((int(q.shape[1]), int(k.shape[1])))
+        return flash(q, k, v, **kw)
+
+    attention.flash_attention_op = recording
+    attention.set_attention_impl("pallas")
+    step = build_step(cfg, shapes["prefill"], mesh)
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, cache = step.fn(p, {"tokens": prompt})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    attention.set_attention_impl("blockwise")
+    attention.flash_attention_op = flash
+    ref = torch.load(f"{ref_dir}/prefill.pt")
+    lspec = shd._fit_spec(mesh, shd.P(None, "model"), tuple(logits.shape))
+    err = {"logits": _block_err(logits.to_local(), ref["logits"],
+                                shd.shard_slices(mesh, lspec,
+                                                 tuple(logits.shape),
+                                                 mesh.coords))}
+    cspecs = shd.cache_shardings(cfg, mesh, cache, PREFILL_BATCH)
+    for k, t in cache["layers"].items():
+        err[k] = _block_err(t.to_local(), ref["cache"][k], shd.shard_slices(
+            mesh, cspecs["layers"][k], tuple(t.shape), mesh.coords))
+    res["prefill"] = {"rel_err": err, "s": secs,
+                      "launches": ops_launches(), "flash_heads": heads,
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(dev)}
+    del logits, cache, ref, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- decode at decode_32k's positions, batch 16 ------------------------
+    seq = shapes["decode"].seq_len
+    abstract = tf.init_cache(cfg, SHARDED_DECODE_BATCH, seq, torch.bfloat16,
+                             device="meta")
+    cspecs = shd.cache_shardings(cfg, mesh, abstract, SHARDED_DECODE_BATCH)
+    cache = {"layers": {}}
+    local = sharded_cache(
+        cfg, SHARDED_DECODE_BATCH, seq, dev,
+        keep=lambda t: t[shd.shard_slices(
+            mesh, shd.P(*tuple(cspecs["layers"]["k"])[1:]), tuple(t.shape),
+            mesh.coords)])
+    from torch.distributed.tensor import DTensor
+    for k, t in local["layers"].items():
+        sp = cspecs["layers"][k]
+        cache["layers"][k] = DTensor.from_local(
+            t, mesh.device_mesh, shd.placements(mesh, sp), run_check=False)
+        check(cache["layers"][k].shape == abstract["layers"][k].shape,
+              f"sharded cache {k}: {cache['layers'][k].shape}")
+    del local
+    ref = torch.load(f"{ref_dir}/decode.pt")
+    step = build_step(cfg, shapes["decode"], mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    errs, secs = [], []
+    for (tok, pos), r in zip(steps, ref):
+        t0 = time.perf_counter()
+        logits, cache = step.fn(p, cache, tok, pos)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        lspec = shd._fit_spec(mesh, shd.P(("pod", "data"), "model"),
+                              tuple(logits.shape))
+        e = {"logits": _block_err(logits.to_local(), r["logits"],
+                                  shd.shard_slices(mesh, lspec,
+                                                   tuple(logits.shape),
+                                                   mesh.coords))}
+        for k, t in cache["layers"].items():
+            sl = shd.shard_slices(mesh, cspecs["layers"][k], tuple(t.shape),
+                                  mesh.coords)
+            lo = sl[2].start or 0
+            if lo <= pos < lo + t.to_local().shape[2]:
+                e[k] = _block_err(t.to_local()[:, :, pos - lo],
+                                  r["rows"][k], (slice(None), sl[1]))
+        errs.append(e)
+    res["decode"] = {"rel_err": errs, "s": secs, "launches": ops_launches(),
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(dev)}
+    del cache, p, ref, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the reduced model in f32: card against the same world on the CPU --
+    rcfg = get_config(FULL_ARCH).reduced()
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                seq_len=SHARDED_REDUCED_SEQ,
+                                global_batch=SHARDED_REDUCED_BATCH)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        rcfg.vocab_size, SHARDED_REDUCED_SEQ, seed=0).batch(
+        0, SHARDED_REDUCED_BATCH).items()}
+    pshape = dataclasses.replace(get_shape("prefill_32k"),
+                                 seq_len=SHARDED_REDUCED_SEQ,
+                                 global_batch=4)
+    dshape = dataclasses.replace(get_shape("decode_32k"),
+                                 seq_len=SHARDED_REDUCED_DECODE,
+                                 global_batch=4)
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m_ = mesh if where == "card" else make_mesh(*SHARDED_MESH,
+                                                    device="cpu")
+        params = build_model(rcfg, dtype=torch.float32, device=d).init(
+            torch.Generator().manual_seed(0))
+        rspecs = shd.param_shardings(rcfg, m_, params)
+        out = {}
+        for name, kw in SHARDED_TRAIN.items():
+            sp = rspecs if name == "auto" else tree_map(shd.strip_data,
+                                                        rspecs)
+            dp = shd.shard_tree(params, m_, sp)
+            extra = {} if name == "auto" else {"bucket_bytes": 1024}
+            with ScaleRecorder() as scales:
+                p2, _, met = build_step(rcfg, shape, m_, lr=REDUCED_STEP_LR,
+                                        **kw, **extra).fn(
+                    dp, momentum_sgd_init(dp), batch)
+            out[name] = (float(met["loss"]),
+                         [t.full_tensor().cpu() for t in tree_leaves(p2)])
+            if scales.calls:
+                whole = tree_map(lambda t: t.cpu(), params)
+                out["slack"] = [t.cpu() for t in tree_leaves(scales.bound(
+                    plan_reduce(whole, bucket_bytes=1024), whole,
+                    shd._axis_size(m_, shd.data_axes(m_))))]
+        dp = shd.shard_tree(params, m_, rspecs)
+        attention.set_attention_impl("pallas")
+        zero_launches()
+        logits, cache = build_step(rcfg, pshape, m_).fn(
+            dp, {"tokens": batch["tokens"][:4]})
+        out["prefill_launches"] = ops_launches()["flash_attention"]
+        attention.set_attention_impl("blockwise")
+        out["prefill"] = [logits.full_tensor().cpu()] + [
+            t.full_tensor().cpu() for t in tree_leaves(cache)]
+        whole = tf.init_cache(rcfg, 4, SHARDED_REDUCED_DECODE,
+                              torch.float32, device=d)
+        for k, t in cache["layers"].items():
+            whole["layers"][k][:, :, :SHARDED_REDUCED_SEQ] = t.full_tensor()
+        dc = shd.shard_tree(whole, m_, shd.cache_shardings(
+            rcfg, m_, whole, 4))
+        step = build_step(rcfg, dshape, m_)
+        out["decode"] = [
+            step.fn(dp, dc, batch["labels"][:4, i:i + 1],
+                    SHARDED_REDUCED_SEQ + i)[0].full_tensor().cpu()
+            for i in range(SHARDED_DECODE_STEPS)]
+        runs[where] = out
+    red = {}
+    for name in SHARDED_TRAIN:
+        (lc, pc), (lp, pp) = runs["card"][name], runs["cpu"][name]
+        # the f32 rule of the 4-rank world; compressed adds lr x one int8
+        # step (the card's scales: the two wires may round a tie apart)
+        slack = runs["card"].get("slack") if name == "compressed" else None
+        slack = slack or [torch.zeros_like(a) for a in pc]
+        red[name] = {"loss_card": lc, "loss_cpu": lp,
+                     "loss_ok": abs(lc - lp) <= 1e-5 * abs(lp),
+                     "params_ok": all(bool(torch.all(
+                         (a - b).abs() <= REDUCED_STEP_LR * e + 1e-6
+                         + 1e-4 * b.abs())) for a, b, e in zip(pc, pp, slack)),
+                     "max_abs_param_diff": max(float((a - b).abs().max())
+                                               for a, b in zip(pc, pp))}
+    for name in ("prefill", "decode"):
+        diffs = [float((a - b).abs().max()) for a, b in zip(
+            runs["card"][name], runs["cpu"][name])]
+        red[name] = {"max_abs_diff": max(diffs),
+                     "ok": all(bool(torch.allclose(a, b, rtol=1e-4,
+                                                   atol=1e-4))
+                               for a, b in zip(runs["card"][name],
+                                               runs["cpu"][name]))}
+    red["prefill"]["flash_launches"] = runs["card"]["prefill_launches"]
+    res["reduced"] = red
+    print(json.dumps(res), flush=True)
+
+
+def phase_sharded() -> dict:
+    """Cell R: the full-width Qwen2-0.5B tensor-parallel on a ``(pod=1,
+    data=2, model=2)`` world of four gloo processes sharing the one card
+    (``sharded_rank``), every result against the unsharded step on this
+    card from the same params and inputs (``sharded_reference``): the
+    auto, mlfabric and compressed steps at seq 4096 and global batch 2
+    (loss within ``SHARDED_BF16_TOL`` of the reference's, params within it
+    as cell B holds them), the 32k prefill under "pallas" (24 flash
+    launches a rank, each on 7 q heads and 1 KV head; logits and cache
+    within ``BF16_PREFILL_TOL`` of the largest value), and 3 decode steps
+    at batch 16 at the last positions of ``decode_32k`` (logits and the
+    written rows within the same).  Then the reduced model in f32, card
+    against CPU: loss rtol 1e-5, params rtol 1e-4 / atol 1e-6, prefill
+    and decode logits within 1e-4.  One card cannot time tensor
+    parallelism (the collectives go through the host): the times are the
+    path's cost.  Returns the launches summed over the ranks."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import run_local_world
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_dir = tempfile.mkdtemp(prefix="sharded_")
+    try:
+        ref = sharded_reference(ref_dir)
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(Path(root) / "src"), root]), OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        outs = run_local_world(
+            "import sys, chip_smoke; chip_smoke.sharded_rank(sys.argv[4])",
+            4, args=(ref_dir,), env=env, timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    smi = nvidia_smi_line()
+    emit({"phase": "sharded", "world": "pod=1 x data=2 x model=2, gloo, "
+          "one card, DTensor collectives staged through the host",
+          "nvidia_smi": smi, "world_s": world_s, **ref, "ranks": res})
+    heads = [(ATTN_HEADS // 2, ATTN_KV_HEADS // 2)] * 24
+    totals = dict.fromkeys(KERNELS, 0)
+    for r in res:
+        who = f"sharded rank {r['rank']}"
+        check(r["param_bytes_held"] == r["param_bytes_predicted"],
+              f"{who}: holds {r['param_bytes_held']} param bytes, "
+              f"param_shardings predicts {r['param_bytes_predicted']}")
+        for name, t in r["train"].items():
+            check(all(math.isfinite(l) for l in t["losses"]),
+                  f"{who} {name}: non-finite loss")
+            check(abs(t["losses"][0] - t["loss_ref"])
+                  <= SHARDED_BF16_TOL * abs(t["loss_ref"]),
+                  f"{who} {name}: loss {t['losses'][0]} vs {t['loss_ref']}")
+            check(t["params_close"] and t["placements_kept"],
+                  f"{who} {name}: params {t}")
+        launched = r["train"]["mlfabric"]["launches"]
+        check(launched["grad_aggregate"] > 0,
+              f"{who}: grad_aggregate did not run: {launched}")
+        launched = r["train"]["compressed"]["launches"]
+        check(launched["quantize"] > 0 and launched["dequant_aggregate"] > 0,
+              f"{who}: the int8 wire did not run: {launched}")
+        pre = r["prefill"]
+        check(pre["launches"]["flash_attention"] == 24
+              and [tuple(h) for h in pre["flash_heads"]] == heads,
+              f"{who}: flash on local heads: {pre['launches']} "
+              f"{pre['flash_heads']}")
+        check(all(v <= BF16_PREFILL_TOL for v in pre["rel_err"].values()),
+              f"{who}: prefill {pre['rel_err']}")
+        for e in r["decode"]["rel_err"]:
+            check(all(v <= BF16_PREFILL_TOL for v in e.values()),
+                  f"{who}: decode {e}")
+        for name, v in r["reduced"].items():
+            check(v.get("ok", True) and v.get("loss_ok", True)
+                  and v.get("params_ok", True),
+                  f"{who}: reduced card vs CPU {name}: {v}")
+        check(r["reduced"]["prefill"]["flash_launches"] == 2,
+              f"{who}: reduced prefill flash launches "
+              f"{r['reduced']['prefill']}")
+        for part in (*r["train"].values(), r["prefill"], r["decode"]):
+            for k in KERNELS:
+                totals[k] += part["launches"][k]
+    return totals
+
+
+# --------------------------------------------------------------------------- #
 # slice 8: DeepSeek-V2's latent attention, the Jamba hybrid and RWKV6 served
 # at their published widths (cells M, N, O)
 # --------------------------------------------------------------------------- #
@@ -3951,6 +4436,7 @@ def main() -> int:
                        for a in SERVE_CELLS}
     family_launches["whisper_train"] = phase_whisper_train()
     family_launches["rwkv_train"] = phase_rwkv_train()
+    family_launches["sharded"] = phase_sharded()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

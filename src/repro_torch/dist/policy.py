@@ -1,25 +1,145 @@
 """Phase-aware policy of the bounded-loss transport tier (DESIGN.md §12),
-and the activation-layout hook the model code calls.
+and the activation-layout policy the model code queries.
 
 ``PhaseLossPolicy`` and ``PhaseLossCallback`` are copied from
-``repro/dist/policy.py``, which imports JAX at the top.  ``constrain`` is
-that module's hook as it behaves with no sharding policy bound: the
-identity.  The policy itself (``sharding_policy``, the name-keyed layouts
-and a ``constrain`` that applies them) comes with the sharding slice
-(ROADMAP queue A item 3).
+``repro/dist/policy.py``, which imports JAX at the top.
+
+Model forward passes are written once and call ``constrain(x, "residual")``
+at layout-critical points; *which* layout that means is decided per
+(mesh x shape) cell by ``dist.sharding.activation_policy`` and bound with
+the ``sharding_policy`` context manager in the step builders.  With no
+policy bound, or on a plain tensor, ``constrain`` is the identity, so model
+code never depends on a mesh being present.  Where a policy is bound and
+``x`` is a DTensor, ``constrain`` redistributes it to the fitted spec's
+placements: the port's counterpart of ``with_sharding_constraint``.  A
+layout that cannot be applied raises; nothing falls back to the
+unconstrained value.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Tuple
+
 import torch
 
-__all__ = ["PhaseLossCallback", "PhaseLossPolicy", "constrain"]
+__all__ = ["PartitionSpec", "PhaseLossCallback", "PhaseLossPolicy",
+           "constrain", "current_policy", "sharding_policy"]
+
+_STACK = threading.local()
+
+
+class PartitionSpec:
+    """One entry per tensor dim: a mesh axis name, a tuple of names (the
+    dim split over several axes, the first one major), or None
+    (replicated): ``jax.sharding.PartitionSpec``'s meaning.  It iterates
+    and compares like the tuple of its entries, but is not a tuple, so the
+    port's tree functions (``repro_torch/tree.py``) keep it as one leaf, as
+    ``jax.tree_util`` keeps a ``PartitionSpec``."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, PartitionSpec):
+            other = other.entries
+        return isinstance(other, tuple) and self.entries == other
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self.entries!r}"
+
+
+P = PartitionSpec
+
+
+def _stack() -> list:
+    if not hasattr(_STACK, "policies"):
+        _STACK.policies = []
+    return _STACK.policies
+
+
+@contextmanager
+def sharding_policy(mesh, act: Dict[str, PartitionSpec]) -> Iterator[None]:
+    """Bind an activation policy ``{name: PartitionSpec}`` for ``mesh``.
+
+    Nestable; the innermost binding wins.  The specs are *hints*: at
+    ``constrain`` time any axis that does not evenly divide the matching
+    tensor dimension is dropped rather than erroring, so one policy dict
+    serves train / prefill / decode shapes alike.
+    """
+    _stack().append((mesh, dict(act)))
+    try:
+        yield
+    finally:
+        _stack().pop()
+
+
+def current_policy() -> Optional[Tuple[object, Dict[str, PartitionSpec]]]:
+    s = _stack()
+    return s[-1] if s else None
+
+
+def _axis_size(mesh, entry) -> int:
+    names = entry if isinstance(entry, tuple) else (entry,)
+    n = 1
+    for name in names:
+        n *= mesh.shape[name]
+    return n
+
+
+def _fit_spec(mesh, spec: PartitionSpec, shape: Tuple[int, ...]
+              ) -> PartitionSpec:
+    """Rank-adjust ``spec`` to ``shape`` and drop non-dividing axes."""
+    entries = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
+    entries = entries[:len(shape)]
+    out = []
+    for dim, entry in zip(shape, entries):
+        if entry is None or dim % _axis_size(mesh, entry) != 0:
+            out.append(None)
+        else:
+            out.append(entry)
+    return PartitionSpec(*out)
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The layout hint for activation ``name``: ``x`` itself, as the
-    reference's ``constrain`` returns it when no policy is bound."""
-    return x
+    """Apply the active policy's layout for ``name`` to a DTensor ``x``:
+    ``x`` redistributed to the fitted spec's placements over its own
+    mesh.  The identity for a plain tensor, with no policy bound, when the
+    policy has no entry for ``name``, or when no axis of the spec fits
+    (as the reference skips an all-None constraint)."""
+    pol = current_policy()
+    if pol is None:
+        return x
+    mesh, act = pol
+    spec = act.get(name)
+    if spec is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from .sharding import mesh_view, on_axes, placements
+    # fitted against the mesh x lives on: the full mesh's axes above 1, or
+    # the model submesh of the MLfabric step's forward
+    dm = mesh_view(x.device_mesh)
+    fitted = _fit_spec(dm, on_axes(spec, dm.axis_names), tuple(x.shape))
+    if all(e is None for e in fitted):
+        return x
+    return x.redistribute(x.device_mesh, placements(dm, fitted))
 
 
 class PhaseLossPolicy:

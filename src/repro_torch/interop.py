@@ -34,13 +34,29 @@ def _is_float(a: np.ndarray) -> bool:
 
 
 def to_torch(tree: Tree, *, dtype: Optional[torch.dtype] = None,
-             device: DeviceLike = None) -> Tree:
+             device: DeviceLike = None, mesh=None,
+             specs: Optional[Tree] = None) -> Tree:
     """numpy tree (params or an optimizer state) -> tensor tree on
     ``device``.
 
     Float leaves become ``dtype`` (default: bf16 for bf16 leaves, else the
     leaf's own float type) by way of float32; other leaves keep their type.
+
+    With a ``mesh`` whose ``model`` axis is above 1 and ``specs`` (a spec
+    tree of the same structure, e.g. ``dist.sharding.param_shardings``),
+    each leaf becomes a DTensor laid out by its spec: this rank converts
+    and keeps only its own block of the array, on ``mesh.device``.
     """
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+
+        from .dist.sharding import placements, shard_slices
+        blocks = tree_map(lambda a, s: np.asarray(a)[shard_slices(
+            mesh, s, np.shape(a), mesh.coords)], tree, specs)
+        local = to_torch(blocks, dtype=dtype, device=mesh.device)
+        return tree_map(lambda t, s: DTensor.from_local(
+            t.contiguous(), mesh.device_mesh, placements(mesh, s),
+            run_check=False), local, specs)
     dev = resolve_device(device)
 
     def conv(leaf):
@@ -73,8 +89,14 @@ def _as_port_states(tree: Tree) -> Tree:
 
 
 def to_numpy(tree: Tree) -> Tree:
-    """tensor tree -> numpy tree; float leaves come back as float32."""
+    """tensor tree -> numpy tree; float leaves come back as float32.  A
+    DTensor leaf is gathered whole first (a collective: every rank of its
+    mesh calls this)."""
+    from torch.distributed.tensor import DTensor
+
     def conv(t: torch.Tensor):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         t = t.detach().cpu()
         if t.is_floating_point():
             t = t.float()

@@ -24,8 +24,20 @@ from .scatter_aggregate import scatter_aggregate, scatter_aggregate_plain
 from .switch_sum import switch_sum, switch_sum_plain
 
 
-def _route(t: torch.Tensor, what: str) -> bool:
-    """True for the kernel, False for the plain version."""
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _route(t: torch.Tensor, what: str, *others: torch.Tensor) -> bool:
+    """True for the kernel, False for the plain version, by ``t``'s device.
+    A DTensor among ``t`` and ``others`` raises: a kernel and its plain
+    version take one rank's local tensors, and nothing here gathers a
+    sharded one (the model hands the kernels its local shards,
+    ``models/attention.py:blockwise_attention``)."""
+    if any(_is_dtensor(x) for x in (t, *others)):
+        raise TypeError(f"{what}: got a DTensor; pass this rank's local "
+                        "tensors (DTensor.to_local())")
     if t.is_cuda:
         return True
     if t.device.type == "cpu":
@@ -52,7 +64,7 @@ def dequantize_op(q: torch.Tensor, scales: torch.Tensor, *, block: int = 256,
     """Unfused decode of one int8 payload: q [D_pad], scales [D_pad/block]
     -> x f32 [orig_len or D_pad].  With ``orig_len`` the result is a view
     of the decoded buffer."""
-    if _route(q, "dequantize_op"):
+    if _route(q, "dequantize_op", scales):
         x = dequantize(q, scales, block=block)
         dequantize_op.launches += 1
     else:
@@ -77,7 +89,7 @@ def dequant_aggregate_op(q: torch.Tensor, scales: torch.Tensor,
     weighted sum -> (agg f32 [orig_len or D_pad], ||agg||^2).  The unfused
     composition is ``dequantize_op`` per row, stacked, then
     ``grad_aggregate_op``, which writes and reads N decoded f32 copies."""
-    if _route(q, "dequant_aggregate_op"):
+    if _route(q, "dequant_aggregate_op", scales, weights):
         out = dequant_aggregate(q, scales, weights, block=block,
                                 orig_len=orig_len)
         dequant_aggregate_op.launches += 1
@@ -91,7 +103,7 @@ def grad_aggregate_op(updates: torch.Tensor, weights: torch.Tensor
     """Aggregator compute: updates [N, D] (f32 or bf16) -> weighted sum in
     f32 -> (agg [D] of updates' dtype, ||agg||^2 f32).  A ragged D is
     masked inside the kernel, with no pad copy."""
-    if _route(updates, "grad_aggregate_op"):
+    if _route(updates, "grad_aggregate_op", weights):
         out = grad_aggregate(updates, weights)
         grad_aggregate_op.launches += 1
         return out
@@ -116,7 +128,7 @@ def scatter_aggregate_op(idx: torch.Tensor, q: torch.Tensor,
     """Sparse receive path of the bounded-loss tier: scatter-add N top-k
     int8 chunks (idx [N, K] int32, -1 = dropped slot) into the dense bucket
     -> (agg f32 [d_out], ||agg||^2), with no dense buffer per sender."""
-    if _route(idx, "scatter_aggregate_op"):
+    if _route(idx, "scatter_aggregate_op", q, scales, weights):
         out = scatter_aggregate(idx, q, scales, weights, d_out=d_out)
         scatter_aggregate_op.launches += 1
         return out
@@ -138,7 +150,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "kernel; call it under torch.no_grad() or on tensors that do not "
             "require grad (training takes the blockwise attention)")
     kw = dict(causal=causal, scale=scale, block_q=block_q, block_k=block_k)
-    if _route(q, "flash_attention_op"):
+    if _route(q, "flash_attention_op", k, v):
         out = flash_attention(q, k, v, **kw)
         flash_attention_op.launches += 1
         return out

@@ -67,3 +67,13 @@ def value_and_grad(loss_fn: Callable, params: Params, batch, *,
     loss = out[0] if has_aux else out
     return out, tree_unflatten(treedef, list(torch.autograd.grad(loss,
                                                                  live)))
+
+
+def params_specs(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16
+                 ) -> Params:
+    """The param tree as ``meta`` tensors: the reference's shapes and
+    dtypes leaf for leaf (its ``params_specs``, an ``eval_shape`` of the
+    init), with no storage and no random draws, so a 236 B-parameter
+    config's leaves can be named and sized on any host."""
+    return tf.init_params(None, cfg, dtype=dtype,
+                          device=torch.device("meta"))

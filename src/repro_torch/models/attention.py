@@ -31,15 +31,20 @@ k and v: its prefill expands it into per-head keys and values for
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..dist.flatbuf import encode_int8, int8_scale
+from ..dist.policy import P, _fit_spec
+from ..dist.sharding import batch_spec_axes, mesh_view, placements
 from ..kernels.ops import flash_attention_op
-from .layers import Params, apply_rope, dense_init
+from .layers import (Params, apply_rope, dense, dense_init, is_dtensor,
+                     whole_last_dim, whole_rows)
 
 NEG_INF = -1e30
 
@@ -185,12 +190,52 @@ class _FlashAttention(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: the
+    attention's backward gives permuted gradients, and DTensor's ``view``
+    of a gradient whose local tensor is permuted fails (PyTorch 2.13)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend_local(fn: Callable, q, k, v):
+    """``fn(q, k, v)`` on this rank's local heads: q, k, v ([B, S, H, D]
+    DTensors) are laid out with the batch over the data axes where it
+    divides (``batch_spec_axes``) and the heads over ``model`` where both
+    head counts divide (``head_policy``), else replicated there as GSPMD
+    would, and ``fn`` (the blockwise loop or the flash kernel) runs on the
+    local tensors; the result is a DTensor in the same layout."""
+    from torch.distributed.tensor import DTensor
+    dm = q.device_mesh
+    mesh = mesh_view(dm)
+    m = mesh.shape.get("model", 1)
+    heads = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
+    spec = P(batch_spec_axes(mesh, q.shape[0]), None, heads, None)
+    local = [_ContiguousGrad.apply(t.redistribute(dm, placements(
+        mesh, _fit_spec(mesh, spec, tuple(t.shape)))).to_local())
+        for t in (q, k, v)]
+    # contiguous: DTensor's views need a dense local tensor, and the
+    # kernel's output is a transposed view
+    return DTensor.from_local(fn(*local).contiguous(), dm, placements(
+        mesh, _fit_spec(mesh, spec, tuple(q.shape))), run_check=False)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, q_offset: int = 0,
                         kv_block: int = 512,
                         scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, Sq, H, Dk]; k: [B, Skv, KVH, Dk]; v: [B, Skv, KVH, Dv].
     ``q_offset`` is the absolute position of q[0] for the causal mask."""
+    if is_dtensor(q):
+        return _attend_local(functools.partial(
+            blockwise_attention, causal=causal, q_offset=q_offset,
+            kv_block=kv_block, scale=scale), q, k, v)
     _, sq, _, dk = q.shape
     skv, dv = v.shape[1], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
@@ -213,7 +258,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, offset: int = 0,
+                     group: Optional[dist.ProcessGroup] = None
+                     ) -> torch.Tensor:
     """One-token attention over a [B, S, KVH, D] cache; q: [B, H, D].
 
     Positions from ``length`` on are masked.  The scores are f32 from the
@@ -221,7 +268,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     reference: a bf16 cache is widened to f32 for the score product (one
     layer's k at a time), not multiplied in bf16, which would round each
     score to bf16.  The probabilities go back to the cache's dtype for the
-    product with v, as in the reference."""
+    product with v, as in the reference.
+
+    With ``group`` the cache is this rank's slice of a sequence split over
+    ``group``, starting at position ``offset``: the softmax is split, each
+    rank's scores reduced to the group's max and sum of exponentials by
+    two all-reduces, and the ranks' partial products summed (in f32) by a
+    third."""
     b, s, kvh, dk = k_cache.shape
     h = q.shape[1]
     g = h // kvh
@@ -234,11 +287,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kf.copy_(k_cache.permute(0, 2, 1, 3))
     scores = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # [B,KVH,G,S]
     del kf
-    valid = torch.arange(s, device=q.device) < length
+    valid = offset + torch.arange(s, device=q.device) < length
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    if group is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        peak = torch.amax(scores, dim=-1, keepdim=True)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+        probs = torch.exp(scores - peak)
+        total = torch.sum(probs, dim=-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        probs = probs / total
     out = torch.matmul(probs.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
+    if group is not None:
+        out32 = out.to(torch.float32)
+        dist.all_reduce(out32, group=group)
+        out = out32.to(out.dtype)
     return out.reshape(b, 1, h, dv)
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos: int):
+    """``gqa_decode``'s write and attention on a DTensor cache laid out by
+    ``cache_shardings`` (the batch over the data axes, the sequence over
+    ``model``).  The new token's q, k, v take the cache's batch layout,
+    replicated elsewhere; the rank holding position ``pos`` writes it into
+    its local slice in place, and every rank attends over its slice
+    (``decode_attention`` with the ``model`` group: the split softmax).
+    Returns the attention output [B, 1, H, D] in the token's layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm, cpl = k_cache.device_mesh, k_cache.placements
+    tok = [Shard(0) if pl == Shard(0) else Replicate() for pl in cpl]
+    ql, kl, vl = (t.redistribute(dm, tok).to_local() for t in (q, k, v))
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    seq = [i for i, pl in enumerate(cpl) if pl == Shard(1)]
+    if len(seq) > 1:
+        raise ValueError(f"cache sequence split over {len(seq)} mesh axes; "
+                         "the cache rules split it over model only")
+    lo, group = 0, None
+    if seq:
+        lo = dm.get_coordinate()[seq[0]] * kc.shape[1]
+        group = dm.get_group(seq[0])
+    if lo <= pos < lo + kc.shape[1]:
+        kc[:, pos - lo] = kl[:, 0]
+        vc[:, pos - lo] = vl[:, 0]
+    out = decode_attention(ql[:, 0], kc, vc, pos + 1, offset=lo, group=group)
+    return DTensor.from_local(out, dm, tok, run_check=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -279,14 +372,29 @@ def _q_proj(p: Params, x: torch.Tensor) -> torch.Tensor:
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    x = _promote(x, p["wq"])
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    x = whole_rows(_promote(x, p["wq"]))      # once for the three
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kvh, hd),
-            v.reshape(b, s, kvh, hd))
+    return (_split_heads(q, b, s, h, hd), _split_heads(k, b, s, kvh, hd),
+            _split_heads(v, b, s, kvh, hd))
+
+
+def _split_heads(t: torch.Tensor, b: int, s: int, n: int, hd: int
+                 ) -> torch.Tensor:
+    """[B, S, n * hd] -> [B, S, n, hd].  A DTensor split along its last dim
+    into pieces that hold no whole number of heads (2 KV heads over a
+    ``model`` axis of 4) is made whole along it first, as GSPMD would."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        pieces = math.prod(size for size, pl in zip(
+            t.device_mesh.mesh.shape, t.placements)
+            if isinstance(pl, Shard) and pl.dim == t.ndim - 1)
+        if n % pieces:
+            t = whole_last_dim(t)
+    return t.reshape(b, s, n, hd)
 
 
 def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -313,7 +421,7 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
     out = blockwise_attention(q, k, v, causal=causal, kv_block=kv_block)
-    return out.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
+    return dense(out.reshape(b, s, -1), p["wo"]), {"k": k, "v": v}
 
 
 def _rope_at(q, k, pos: int, cfg: ModelConfig):
@@ -333,11 +441,14 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         q, k = _rope_at(q, k, pos, cfg)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
-    return out.reshape(b, 1, -1) @ p["wo"], {"k": cache["k"],
-                                             "v": cache["v"]}
+    if is_dtensor(cache["k"]):
+        out = _decode_sharded(q, k, v, cache["k"], cache["v"], pos)
+    else:
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
+    return dense(out.reshape(b, 1, -1), p["wo"]), {"k": cache["k"],
+                                                   "v": cache["v"]}
 
 
 def gqa_cross_decode(p: Params, x: torch.Tensor, k: torch.Tensor,
@@ -370,6 +481,9 @@ def gqa_decode_q8(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     The reference computes the scale as ``max|t| / 127.0``, which ``jit``
     (its serving path) turns into a multiply by f32(1/127); this is the
     jitted scale (``quantize_kv``)."""
+    if is_dtensor(cache["k_q"]):
+        raise NotImplementedError("an int8 KV cache on a model axis is not "
+                                  "ported; decode it unsharded")
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:

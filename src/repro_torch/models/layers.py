@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,9 +24,16 @@ Params = Dict[str, Any]
 # initializers (same distributions as the reference; jax.random's bits
 # cannot be reproduced, so parity tests convert params instead of seeds)
 # --------------------------------------------------------------------------- #
-def normal(gen: torch.Generator, shape: Sequence[int], std: float, *,
-           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+def draw_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where a draw from ``gen`` is made: the generator's device, or
+    ``meta`` without one (``models.api.params_specs``: shapes and dtypes,
+    no storage and no random draws)."""
+    return gen.device if gen is not None else torch.device("meta")
+
+
+def normal(gen: Optional[torch.Generator], shape: Sequence[int], std: float,
+           *, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=gen, device=draw_device(gen),
                     dtype=torch.float32)
     return (x * std).to(device=device, dtype=dtype)
 
@@ -145,13 +152,14 @@ def init_mlp(gen: torch.Generator, lead: Sequence[int], d: int, d_ff: int,
 
 
 def apply_mlp(p: Params, x: torch.Tensor, *, act: str) -> torch.Tensor:
-    up = x @ p["up"]
+    x = whole_rows(x)                   # once for up and gate
+    up = dense(x, p["up"])
     if "up_b" in p:
         up = up + p["up_b"]
     h = activation(act)(up)
     if "gate" in p:
-        h = h * (x @ p["gate"])
-    out = h @ p["down"]
+        h = h * dense(x, p["gate"])
+    out = dense(h, p["down"])
     if "down_b" in p:
         out = out + p["down_b"]
     return out
@@ -170,14 +178,40 @@ def init_embeddings(gen: torch.Generator, padded_vocab: int, d: int, *,
     return p
 
 
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p["embed"]):
+        return _embed_sharded(p["embed"], tokens)
     return p["embed"][tokens.long()]
+
+
+def _embed_sharded(table, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on a DTensor table: the table made whole on every rank,
+    each rank's rows gathered from it for its block of ``tokens`` (plain
+    tokens are the same on every rank), the rows laid out as the tokens
+    are.  The table's gradient is a partial sum over the axes that split
+    the tokens.  DTensor's own lookup fails in its backward on a 2-D mesh
+    (PyTorch 2.11: an unnormalized ``Shard(-1)`` in ``index_put``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim,
+                                    run_check=False)
+    split = [isinstance(pl, Shard) for pl in tokens.placements]
+    whole = table.redistribute(dm, [Replicate()] * dm.ndim).to_local(
+        grad_placements=[Partial() if s else Replicate() for s in split])
+    return DTensor.from_local(whole[tokens.to_local().long()], dm,
+                              tokens.placements, run_check=False)
 
 
 def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
     if "lm_head" in p:
-        return h @ p["lm_head"]
-    return h @ p["embed"].T
+        return dense(h, p["lm_head"])
+    return dense(h, p["embed"].T)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -192,8 +226,62 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         pad = torch.arange(v_pad, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(whole_last_dim(logits), -1,
+                        labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+def _whole_along(t: torch.Tensor, dims) -> torch.Tensor:
+    """``t`` made whole along ``dims`` where it is a DTensor split along
+    any of them (``t`` itself otherwise)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(t):
+        return t
+    split = [isinstance(pl, Shard) and pl.dim in dims for pl in t.placements]
+    if not any(split):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if s else pl for s, pl in zip(split, t.placements)])
+
+
+def whole_last_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last dim whole on every rank where ``t`` is a DTensor
+    split along it (``t`` itself otherwise).  ``softmax_xent`` gathers the
+    gold logits from the whole vocab: DTensor's gather from a vocab-split
+    tensor (its masked partial) fails to reduce a [B, S, 1] result
+    (PyTorch 2.13)."""
+    return _whole_along(t, {t.ndim - 1})
+
+
+def whole_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` ([B, S, ..., d]) whole along every dim but the first and the
+    last where it is a DTensor split along one: the sequence-parallel
+    residual gathered before a projection (or a slice along the
+    sequence), as DTensor cannot flatten a split sequence into a matmul's
+    rows (PyTorch 2.11)."""
+    return _whole_along(t, set(range(1, t.ndim - 1)))
+
+
+class _WholeRowsGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient's rows whole: the
+    gradient a projection gets back from the sequence-parallel residual is
+    split along the sequence, and its matmul's backward flattens it."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_rows(g)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  On DTensors (a model axis) the rows of ``x`` and of the
+    gradient that comes back are made whole first (``whole_rows``)."""
+    if not is_dtensor(x):
+        return x @ w
+    return _WholeRowsGrad.apply(whole_rows(x) @ w)
 
 
 def chunked_loss(h: torch.Tensor, embeds: Params, labels: torch.Tensor,
@@ -201,6 +289,7 @@ def chunked_loss(h: torch.Tensor, embeds: Params, labels: torch.Tensor,
     """Mean next-token loss with sequence-chunked logits, so [B, S, V] is
     never materialized at once.  h: [B, S, d]; labels: [B, S]."""
     b, s, _ = h.shape
+    h = whole_rows(h)
     if s % chunk != 0 or s <= chunk:
         return torch.mean(softmax_xent(unembed(embeds, h), labels,
                                        vocab_size))

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaConfig, ModelConfig
-from .layers import Params, dense_init, normal
+from .layers import Params, dense_init, draw_device, normal
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int, *,
@@ -42,7 +42,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int, *,
     kw = dict(dtype=dtype, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     a_log = torch.log(torch.arange(1, ns + 1, **f32)).expand(n, di, ns)
-    dt = torch.rand((n, di), generator=gen, device=gen.device) * 0.1
+    dt = torch.rand((n, di), generator=gen, device=draw_device(gen)) * 0.1
     dt_bias = torch.log(torch.exp(torch.clamp_min(dt, 1e-4)) - 1.0 + 1e-6)
     return {
         "in_x": dense_init(gen, (n, d, di), **kw),

@@ -34,12 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, RWKVConfig
-from .layers import Params, activation, dense_init, normal
+from .layers import Params, activation, dense_init, draw_device, normal
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, shift: float, *,
              dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    x = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    x = torch.rand(tuple(shape), generator=gen, device=draw_device(gen))
     return (x * scale + shift).to(device=device, dtype=dtype)
 
 

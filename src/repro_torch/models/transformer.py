@@ -72,7 +72,7 @@ from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
 from .layers import (Params, apply_mlp, apply_norm, chunked_loss,
                      embed_tokens, init_embeddings, init_mlp, init_norm,
-                     unembed)
+                     is_dtensor, unembed, whole_rows)
 from .moe import init_moe, moe_forward
 
 AUX_LOSS_COEF = 0.01
@@ -301,10 +301,12 @@ def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
         else:
             h, c, a = layer_forward(layer_p, h, cfg, i)
             if collect_cache:
-                # one stacked buffer per leaf and slot, no stack copy
+                # one stacked buffer per leaf and slot, no stack copy (a
+                # sharded layer's DTensors are stacked once at the end)
                 s, g = i % gs, i // gs
                 if slots[s] is None:
-                    slots[s] = {k: t.new_empty((n_stack,) + tuple(t.shape))
+                    slots[s] = {k: [None] * n_stack if is_dtensor(t)
+                                else t.new_empty((n_stack,) + tuple(t.shape))
                                 for k, t in c.items()}
                 for k, t in c.items():
                     slots[s][k][g] = t
@@ -312,6 +314,8 @@ def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
             aux = aux + a
     cache = None
     if collect_cache:
+        slots = [{k: torch.stack(t) if isinstance(t, list) else t
+                  for k, t in slot.items()} for slot in slots]
         cache = {"layers": slots[0] if gs == 1 else tuple(slots)}
     return h, cache, aux
 
@@ -374,7 +378,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     with torch.no_grad():
         h, cache, _ = forward(params, batch, cfg, remat=False,
                               collect_cache=True)
-        return unembed(params["embeds"], h[:, -1]), cache
+        return constrain(unembed(params["embeds"], whole_rows(h)[:, -1]),
+                         "logits"), cache
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -390,4 +395,5 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
         h = embed_tokens(params["embeds"], tokens)
         h, cache = stack_decode(params, h, cache, pos, cfg)
         h = apply_norm(cfg.norm, params["final_norm"], h)
-        return unembed(params["embeds"], h[:, -1]), cache
+        return constrain(unembed(params["embeds"], h[:, -1]), "logits"), \
+            cache

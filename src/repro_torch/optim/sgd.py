@@ -25,8 +25,11 @@ class MomentumState(NamedTuple):
 
 
 def momentum_sgd_init(params: Params) -> MomentumState:
+    """Zero f32 history laid out as each param (a DTensor param gets a
+    DTensor history with its placements)."""
     return MomentumState(history=tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                   memory_format=torch.contiguous_format),
         params))
 
 

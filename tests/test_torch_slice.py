@@ -355,6 +355,26 @@ _ISOLATION_SCRIPT = textwrap.dedent("""
     rng = np.random.default_rng(0)
     done, _, _ = serve(fm, fp, [Request(0, np.zeros(3, np.int32))], 1, 5, rng)
     assert len(done[0].output) == 2
+
+    # slice 10: the partition rules over a model axis, from meta params,
+    # the DTensor placements, the policy, and the sharded steps' module
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.policy import constrain, sharding_policy
+    from repro_torch.launch import batch_axes, make_production_mesh  # noqa
+    from repro_torch.launch.local import stage_collectives_through_host
+    from repro_torch.launch.steps import build_step  # noqa: F401
+    from repro_torch.models.api import params_specs
+    pm = shd.MeshShape(("pod", "data", "model"),
+                       {{"pod": 2, "data": 16, "model": 16}})
+    dcfg = get_config("deepseek-v2-236b")
+    specs = shd.param_shardings(dcfg, pm, params_specs(dcfg))
+    assert shd.param_bytes_per_rank(dcfg, pm, params_specs(dcfg)) > 0
+    assert shd.placements(pm, shd.P(("pod", "data"), "model"))
+    assert shd.activation_policy(dcfg, pm, 64)["residual"] == shd.P(
+        ("pod", "data"), "model", None)
+    with sharding_policy(pm, shd.activation_policy(dcfg, pm, 64)):
+        assert constrain(torch.ones(2), "residual") is not None
+    stage_collectives_through_host()
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     print("LEAKED", bad)
