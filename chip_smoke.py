@@ -158,10 +158,23 @@ toolkit.  Every line it prints is one JSON object:
    card (DTensor's collectives staged through the host): the auto,
    mlfabric and compressed steps at seq 4096 x batch 2, the 32k prefill
    under "pallas" (24 flash launches a rank on 7 q heads and 1 KV head)
-   and 3 decode steps at batch 16, each against the unsharded step on
+   and 2 decode steps at batch 16, each against the unsharded step on
    the card; then the reduced model in f32, card against CPU; per-rank
    peaks beside the predicted per-rank param bytes.
-30. The ``{"kernels": [...]}`` summary (seven kernels), then
+30. ``sharded_families`` (cell S): on a world of four gloo processes
+   sharing the card, first the reduced granite-moe, deepseek-v2, jamba
+   (one group, "mamm"), rwkv6 and whisper in f32, card against CPU
+   within 1e-4: the auto and MLfabric steps on ``(pod=1, data=2,
+   model=2)`` and ``(1, 1, 4)``, the prefill under "pallas", 3 decode
+   steps, and int8-cache decode on qwen2-0.5b and granite.  Then at
+   full width against the unsharded runs on the card: S1, granite-moe
+   whole, auto and MLfabric on ``(1, 2, 2)`` at seq 1,024 x batch 2
+   (the MLfabric step launches ``grad_aggregate`` over ``data``); S2,
+   one deepseek-v2 layer on ``(1, 1, 4)``, the 4,096-token prefill and 3
+   decode steps at batch 16 on a latent cache split over ``model``; S3,
+   rwkv6 whole, the auto step on ``(1, 1, 4)``; params held beside
+   ``param_bytes_per_rank``, per-rank peaks, seconds per step.
+31. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -3566,9 +3579,18 @@ SHARDED_MESH = ((1, 2, 2), ("pod", "data", "model"))
 SHARDED_TRAIN = {"auto": {}, "mlfabric": {"grad_path": "mlfabric"},
                  "compressed": {"grad_path": "mlfabric",
                                 "compress_inter": True}}
-SHARDED_TIMED = 2                # timed steps after 1 warm-up, per config
+# timed steps after 1 warm-up, per config, and decode steps: 2 and 3 cut to
+# 1 and 2 when cell S joined (the whole script measured 1,010 s of its
+# 1,100 s budget, and cell R's host-bound steps spread 15-35% a run)
+SHARDED_TIMED = 1
 SHARDED_DECODE_BATCH = 16        # decode_32k's batch 128, cut to 16
-SHARDED_DECODE_STEPS = 3
+SHARDED_DECODE_STEPS = 2
+SHARDED_CUTS = [
+    "train_4k at global batch 2, not 256; 1 warm-up and 1 timed step of "
+    "each step (2 before cell S joined)",
+    "prefill_32k at batch 1, not 32",
+    "decode_32k at batch 16, not 128, 2 steps at its last positions (3 "
+    "before cell S joined)"]
 SHARDED_BF16_TOL = 3e-2          # cell B's rule: loss and params
 SHARDED_REDUCED_SEQ, SHARDED_REDUCED_BATCH = 32, 8
 SHARDED_REDUCED_DECODE = 64      # cache positions of the reduced decode
@@ -3576,21 +3598,21 @@ SHARDED_REDUCED_DECODE = 64      # cache positions of the reduced decode
 
 def sharded_cache(cfg, batch: int, seq: int, dev, keep=None):
     """A ``decode_32k``-shaped cache filled as ``serve_cell`` fills one:
-    the stacked k, then v, one layer's normals at a time from a generator
-    seeded 6 on the card.  ``keep(layer_tensor)`` cuts what each layer
-    keeps (a rank's block); by default the whole cache."""
+    each stacked entry in turn (k then v; MLA's ckv then krope), one
+    layer's normals at a time from a generator seeded 6 on the card.
+    ``keep(name, layer_tensor)`` cuts what each layer keeps (a rank's
+    block); by default the whole cache."""
     import torch
     from repro_torch.models import transformer as tf
     gen = torch.Generator(device=dev).manual_seed(6)
     spec = tf.layer_cache_spec(cfg, 0, batch, seq, torch.bfloat16)
     out = {}
-    for name in ("k", "v"):
-        shape, dtype = spec[name]
+    for name, (shape, dtype) in spec.items():
         layers = []
         for _ in range(cfg.n_layers):
             t = torch.empty(shape, dtype=dtype, device=dev)
             t.normal_(generator=gen)
-            layers.append(keep(t).clone() if keep else t)
+            layers.append(keep(name, t).clone() if keep else t)
         out[name] = torch.stack(layers)
         del layers
     return {"layers": out}
@@ -3817,8 +3839,8 @@ def sharded_rank(ref_dir: str) -> None:
     cache = {"layers": {}}
     local = sharded_cache(
         cfg, SHARDED_DECODE_BATCH, seq, dev,
-        keep=lambda t: t[shd.shard_slices(
-            mesh, shd.P(*tuple(cspecs["layers"]["k"])[1:]), tuple(t.shape),
+        keep=lambda name, t: t[shd.shard_slices(
+            mesh, shd.P(*tuple(cspecs["layers"][name])[1:]), tuple(t.shape),
             mesh.coords)])
     from torch.distributed.tensor import DTensor
     for k, t in local["layers"].items():
@@ -3955,7 +3977,7 @@ def phase_sharded() -> dict:
     (loss within ``SHARDED_BF16_TOL`` of the reference's, params within it
     as cell B holds them), the 32k prefill under "pallas" (24 flash
     launches a rank, each on 7 q heads and 1 KV head; logits and cache
-    within ``BF16_PREFILL_TOL`` of the largest value), and 3 decode steps
+    within ``BF16_PREFILL_TOL`` of the largest value), and 2 decode steps
     at batch 16 at the last positions of ``decode_32k`` (logits and the
     written rows within the same).  Then the reduced model in f32, card
     against CPU: loss rtol 1e-5, params rtol 1e-4 / atol 1e-6, prefill
@@ -3984,7 +4006,8 @@ def phase_sharded() -> dict:
         shutil.rmtree(ref_dir, ignore_errors=True)
     res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
     smi = nvidia_smi_line()
-    emit({"phase": "sharded", "world": "pod=1 x data=2 x model=2, gloo, "
+    emit({"phase": "sharded", "reduced": SHARDED_CUTS,
+          "world": "pod=1 x data=2 x model=2, gloo, "
           "one card, DTensor collectives staged through the host",
           "nvidia_smi": smi, "world_s": world_s, **ref, "ranks": res})
     heads = [(ATTN_HEADS // 2, ATTN_KV_HEADS // 2)] * 24
@@ -4028,6 +4051,671 @@ def phase_sharded() -> dict:
         for part in (*r["train"].values(), r["prefill"], r["decode"]):
             for k in KERNELS:
                 totals[k] += part["launches"][k]
+    return totals
+
+
+# --------------------------------------------------------------------------- #
+# slice 11: the other families on a model axis (cell S)
+# --------------------------------------------------------------------------- #
+FAMILY_MESHES = {"2x2": ((1, 2, 2), ("pod", "data", "model")),
+                 "1x4": ((1, 1, 4), ("pod", "data", "model"))}
+# the full-width parts: S1 and S3 train (1 warm-up and
+# FAMILY_SHARDED_TIMED timed steps of each step), S2 serves
+FAMILY_PARTS = {
+    "S1": dict(arch="granite-moe-1b-a400m", layers=None, mesh="2x2",
+               train=("auto", "mlfabric")),
+    "S2": dict(arch="deepseek-v2-236b", layers=1, mesh="1x4"),
+    "S3": dict(arch="rwkv6-1.6b", layers=None, mesh="1x4", train=("auto",)),
+}
+FAMILY_SHARDED_SEQ = 1024        # train_4k's seq 4096, cut to 1,024
+FAMILY_SHARDED_TIMED = 1
+FAMILY_SHARDED_PREFILL = 4096    # cell M's prefill, at batch 1
+FAMILY_DECODE_STEPS = 3
+FAMILY_SAMPLE = 1 << 20          # entries of a leaf held against the reference
+# the reduced part, card against CPU in f32 (the CPU twins' cases)
+FAMILY_SHARDED_REDUCED = ("granite-moe-1b-a400m", "deepseek-v2-236b",
+                          "jamba-v0.1-52b", "rwkv6-1.6b", "whisper-tiny")
+FAMILY_SHARDED_Q8 = ("qwen2-0.5b", "granite-moe-1b-a400m")
+FAMILY_REDUCED_CUTS = {"jamba-v0.1-52b": {"n_layers": 4,
+                                          "layer_pattern": "mamm"}}
+FAMILY_REDUCED_TOL = 1e-4
+FAMILY_SHARDED_CUTS = [
+    "S1 granite-moe-1b-a400m and S3 rwkv6-1.6b whole, at train_4k's seq "
+    "4,096 x global batch 256 cut to 1,024 x 2; 1 warm-up and 1 timed "
+    "step of each step",
+    "S2 deepseek-v2-236b: 1 of 60 layers at its published widths (cell "
+    "M's); prefill 4,096 tokens at batch 1; decode_32k at batch 16, not "
+    "128, 3 steps at its last positions",
+    "trained params held against the unsharded step's at a seeded sample "
+    "of 2^20 entries a leaf and each leaf's f32 sum",
+    "the reduced part: jamba one group of 4 layers, 'mamm'",
+]
+
+
+def family_part_config(part: str):
+    from repro_torch.configs import get_config
+    spec = FAMILY_PARTS[part]
+    cfg = get_config(spec["arch"])
+    return dataclasses.replace(cfg, n_layers=spec["layers"] or cfg.n_layers)
+
+
+def family_part_params(part: str, dev):
+    """``part``'s config and its bf16 params, seeded 0 on ``dev``."""
+    import torch
+    from repro_torch.models import build_model
+    cfg = family_part_config(part)
+    return cfg, build_model(cfg, dtype=torch.bfloat16, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+
+
+def family_shapes():
+    from repro_torch.configs import SHAPES
+    return {"train": dataclasses.replace(SHAPES["train_4k"],
+                                         seq_len=FAMILY_SHARDED_SEQ,
+                                         global_batch=STEP_BATCH),
+            "prefill": dataclasses.replace(SHAPES["prefill_32k"],
+                                           seq_len=FAMILY_SHARDED_PREFILL,
+                                           global_batch=PREFILL_BATCH),
+            "decode": dataclasses.replace(SHAPES["decode_32k"],
+                                          global_batch=SHARDED_DECODE_BATCH)}
+
+
+def family_train_batches(cfg, dev):
+    import torch
+    from repro_torch.data import SyntheticLM
+    src = SyntheticLM(cfg.vocab_size, FAMILY_SHARDED_SEQ, seed=0)
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in src.batch(i, STEP_BATCH).items()}
+            for i in range(1 + FAMILY_SHARDED_TIMED)]
+
+
+def family_serve_inputs(cfg, dev):
+    """S2's prompt and, per decode step, its tokens and position (the last
+    of ``decode_32k``), from a generator seeded 5 on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, FAMILY_SHARDED_PREFILL),
+                           generator=gen, device=dev, dtype=torch.int32)
+    seq = family_shapes()["decode"].seq_len
+    steps = [(torch.randint(0, cfg.vocab_size, (SHARDED_DECODE_BATCH, 1),
+                            generator=gen, device=dev, dtype=torch.int32),
+              seq - FAMILY_DECODE_STEPS + i)
+             for i in range(FAMILY_DECODE_STEPS)]
+    return prompt, steps
+
+
+def leaf_sample(i: int, shape) -> "torch.Tensor":
+    """Flat indices of leaf ``i``'s seeded sample: all of a leaf of at
+    most ``FAMILY_SAMPLE`` entries, else that many drawn seeded ``i``."""
+    import torch
+    n = math.prod(shape)
+    if n <= FAMILY_SAMPLE:
+        return torch.arange(n)
+    return torch.randint(0, n, (FAMILY_SAMPLE,),
+                         generator=torch.Generator().manual_seed(i))
+
+
+def sample_leaves(tree) -> list:
+    """Each leaf's sampled entries (f32, host), f32 sum and sum of
+    absolute values."""
+    from repro_torch.tree import tree_leaves
+    out = []
+    for i, t in enumerate(tree_leaves(tree)):
+        idx = leaf_sample(i, tuple(t.shape)).to(t.device)
+        out.append({"values": t.reshape(-1)[idx].float().cpu(),
+                    "sum": float(t.float().sum()),
+                    "abs_sum": float(t.float().abs().sum())})
+    return out
+
+
+def compare_sample(tree, specs, mesh, ref: list, tol: float) -> dict:
+    """A sharded tree against ``sample_leaves`` of the reference's: each
+    rank compares the sampled entries its blocks hold (within rtol and
+    atol ``tol``), and every leaf's f32 sum (a collective) within ``tol``
+    of the reference's sum of absolute values."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.tree import tree_leaves
+    close, worst, sums, held = True, 0.0, 0.0, 0
+    for i, (t, s, r) in enumerate(zip(tree_leaves(tree), tree_leaves(specs),
+                                      ref)):
+        shape = tuple(t.shape)
+        idx = leaf_sample(i, shape)
+        inside = torch.ones(idx.shape, dtype=torch.bool)
+        local = []
+        for c, sl, n in zip(torch.unravel_index(idx, shape),
+                            shd.shard_slices(mesh, s, shape, mesh.coords),
+                            shape):
+            lo, hi = sl.start or 0, n if sl.stop is None else sl.stop
+            inside &= (c >= lo) & (c < hi)
+            local.append(c - lo)
+        block = t.to_local()
+        got = block[tuple(c[inside].to(block.device) for c in local)]
+        got, want = got.float().cpu(), r["values"][inside]
+        held += int(inside.sum())
+        if got.numel():
+            close &= bool(torch.allclose(got, want, rtol=tol, atol=tol))
+            worst = max(worst, float((got - want).abs().max()))
+        total = float(torch.sum(t.float()).full_tensor())
+        sums = max(sums, abs(total - r["sum"]) / max(r["abs_sum"], 1e-30))
+    return {"sample_close": close, "sample_max_abs_diff": worst,
+            "sample_held": held, "sum_rel_err": sums,
+            "sums_close": sums <= tol}
+
+
+def sharded_families_reference(out_dir: str) -> dict:
+    """Cell S's unsharded runs on this process's world of one, from the
+    ranks' seeds: S1's and S3's steps (the MLfabric step with
+    ``overlap_chunks=2``, each of the two rows its own loss and aux loss,
+    as the two data ranks take them), S2's prefill and decode; written to
+    ``out_dir`` for the ranks."""
+    import torch
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.optim import momentum_sgd_init
+
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(device=dev)
+    shapes = family_shapes()
+    t0 = time.perf_counter()
+    for part in ("S1", "S3"):
+        cfg, params = family_part_params(part, dev)
+        batches = family_train_batches(cfg, dev)
+        for name in FAMILY_PARTS[part]["train"]:
+            kw = dict(SHARDED_TRAIN[name])
+            if name == "mlfabric":
+                kw["overlap_chunks"] = STEP_BATCH
+            step = build_step(cfg, shapes["train"], mesh, lr=STEP_LR,
+                              gamma=STEP_GAMMA, remat=True, **kw)
+            p, _, m = step.fn(params, momentum_sgd_init(params), batches[0])
+            torch.save({"loss": float(m["loss"]),
+                        "sample": sample_leaves(p)},
+                       f"{out_dir}/{part}_{name}.pt")
+            del p, m, step
+        del params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg, params = family_part_params("S2", dev)
+    prompt, steps = family_serve_inputs(cfg, dev)
+    with RouteHold() as hold:
+        logits, cache = build_step(cfg, shapes["prefill"], mesh).fn(
+            params, {"tokens": prompt})
+        torch.save({"logits": logits.cpu(),
+                    "cache": {k: t.cpu() for k, t in cache["layers"].items()},
+                    "routes": [c.cpu() for c in hold.calls]},
+                   f"{out_dir}/S2_prefill.pt")
+        del logits, cache
+        cache = sharded_cache(cfg, SHARDED_DECODE_BATCH,
+                              shapes["decode"].seq_len, dev)
+        step = build_step(cfg, shapes["decode"], mesh)
+        out = []
+        for tok, pos in steps:
+            hold.record()
+            logits, cache = step.fn(params, cache, tok, pos)
+            out.append({"logits": logits.cpu(), "pos": pos,
+                        "rows": {k: t[:, :, pos].cpu()
+                                 for k, t in cache["layers"].items()},
+                        "routes": [c.cpu() for c in hold.calls]})
+    torch.save(out, f"{out_dir}/S2_decode.pt")
+    del cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"reference_s": time.perf_counter() - t0}
+
+
+def _one_rank_at_a_time(fn):
+    """``fn()`` on each rank in turn, a barrier between: a full-width
+    init holds its whole model (and an f32 draw of its largest leaf) on
+    the card, once, not four times at once."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _sharded_part(part: str, mesh, variants) -> tuple:
+    """``part``'s config, params laid out for each of ``variants`` ("auto":
+    ``param_shardings``; "mlfabric": stripped of the batch axes), their
+    specs, and the predicted bytes a rank holds."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.api import params_specs
+    from repro_torch.tree import tree_map
+
+    def init():
+        cfg, full = family_part_params(part, mesh.device)
+        specs = shd.param_shardings(cfg, mesh, full)
+        out = {}
+        for v in variants:
+            sp = specs if v == "auto" else tree_map(shd.strip_data, specs)
+            out[v] = (shd.shard_tree(full, mesh, sp), sp)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cfg, out
+
+    cfg, out = _one_rank_at_a_time(init)
+    return cfg, out, shd.param_bytes_per_rank(cfg, mesh, params_specs(cfg))
+
+
+def _held_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree))
+
+
+def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
+    """S1 or S3 in a rank: each step from the same params, 1 warm-up and
+    ``FAMILY_SHARDED_TIMED`` timed steps, the first against the
+    reference's sample."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import build_step
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import tree_leaves
+
+    dev = mesh.device
+    names = FAMILY_PARTS[part]["train"]
+    cfg, trees, predicted = _sharded_part(part, mesh, names)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "param_bytes_predicted": predicted,
+           "param_bytes_held": _held_bytes(trees["auto"][0])}
+    batches = family_train_batches(cfg, dev)
+    for name in names:
+        p, sp = trees.pop(name)
+        o = momentum_sgd_init(p)
+        step = build_step(cfg, family_shapes()["train"], mesh, lr=STEP_LR,
+                          gamma=STEP_GAMMA, remat=True, **SHARDED_TRAIN[name])
+        ref = torch.load(f"{ref_dir}/{part}_{name}.pt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        losses, secs = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            p, o, m = step.fn(p, o, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                first = compare_sample(p, sp, mesh, ref["sample"],
+                                       SHARDED_BF16_TOL)
+                first["placements_kept"] = all(
+                    tuple(a.placements) == tuple(shd.placements(mesh, s))
+                    for a, s in zip(tree_leaves(p), tree_leaves(sp)))
+        res[name] = {**first, "loss_ref": ref["loss"], "losses": losses,
+                     "warmup_s": secs[0], "step_s": secs[1:],
+                     "s_per_step": sum(secs[1:]) / FAMILY_SHARDED_TIMED,
+                     "launches": ops_launches(),
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(dev)}
+        del p, o, step, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def family_sharded_serve(ref_dir: str, mesh) -> dict:
+    """S2 in a rank: the prefill, then the decode steps on a latent cache
+    whose sequence is split over ``model``, each against the reference's
+    block (``_block_err``)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import build_step
+    from repro_torch.models import transformer as tf
+
+    dev = mesh.device
+    cfg, trees, predicted = _sharded_part("S2", mesh, ("auto",))
+    p = trees["auto"][0]
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "param_bytes_predicted": predicted,
+           "param_bytes_held": _held_bytes(p)}
+    shapes = family_shapes()
+    prompt, steps = family_serve_inputs(cfg, dev)
+    step = build_step(cfg, shapes["prefill"], mesh)
+    ref = torch.load(f"{ref_dir}/S2_prefill.pt")
+    # the reference's choices of experts (RouteHold: two bf16 paths route
+    # near ties apart)
+    with RouteHold() as hold:
+        hold.replay([c.to(dev) for c in ref["routes"]])
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        logits, cache = step.fn(p, {"tokens": prompt})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lspec = shd._fit_spec(mesh, shd.P(None, "model"),
+                              tuple(logits.shape))
+        err = {"logits": _block_err(logits.to_local(), ref["logits"],
+                                    shd.shard_slices(mesh, lspec,
+                                                     tuple(logits.shape),
+                                                     mesh.coords))}
+        cspecs = shd.cache_shardings(cfg, mesh, cache, PREFILL_BATCH)
+        for k, t in cache["layers"].items():
+            err[k] = _block_err(t.to_local(), ref["cache"][k],
+                                shd.shard_slices(mesh, cspecs["layers"][k],
+                                                 tuple(t.shape), mesh.coords))
+        res["prefill"] = {"rel_err": err, "s": secs,
+                          "launches": ops_launches(),
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated(dev)}
+        del logits, cache, ref, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        seq = shapes["decode"].seq_len
+        abstract = tf.init_cache(cfg, SHARDED_DECODE_BATCH, seq,
+                                 torch.bfloat16, device="meta")
+        cspecs = shd.cache_shardings(cfg, mesh, abstract,
+                                     SHARDED_DECODE_BATCH)
+        local = sharded_cache(
+            cfg, SHARDED_DECODE_BATCH, seq, dev,
+            keep=lambda name, t: t[shd.shard_slices(
+                mesh, shd.P(*tuple(cspecs["layers"][name])[1:]),
+                tuple(t.shape), mesh.coords)])
+        cache = {"layers": {k: DTensor.from_local(
+            t, mesh.device_mesh, shd.placements(mesh, cspecs["layers"][k]),
+            run_check=False) for k, t in local["layers"].items()}}
+        del local
+        res["cache_bytes_held"] = _held_bytes(cache)
+        ref = torch.load(f"{ref_dir}/S2_decode.pt")
+        step = build_step(cfg, shapes["decode"], mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        errs, secs = [], []
+        for (tok, pos), r in zip(steps, ref):
+            hold.replay([c.to(dev) for c in r["routes"]])
+            t0 = time.perf_counter()
+            logits, cache = step.fn(p, cache, tok, pos)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            lspec = shd._fit_spec(mesh, shd.P(("pod", "data"), "model"),
+                                  tuple(logits.shape))
+            e = {"logits": _block_err(logits.to_local(), r["logits"],
+                                      shd.shard_slices(mesh, lspec,
+                                                       tuple(logits.shape),
+                                                       mesh.coords))}
+            for k, t in cache["layers"].items():
+                sl = shd.shard_slices(mesh, cspecs["layers"][k],
+                                      tuple(t.shape), mesh.coords)
+                lo = sl[2].start or 0
+                if lo <= pos < lo + t.to_local().shape[2]:
+                    e[k] = _block_err(t.to_local()[:, :, pos - lo],
+                                      r["rows"][k], (slice(None), sl[1]))
+            errs.append(e)
+    res["decode"] = {"rel_err": errs, "s": secs, "launches": ops_launches(),
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(dev)}
+    del cache, p, trees, ref, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _reduced_family_runs(arch: str, mesh) -> dict:
+    """The CPU twins' cases of reduced ``arch`` in f32 on ``mesh`` (the
+    card's or the CPU's): the auto and MLfabric steps, the prefill of 4
+    rows under "pallas" and 3 decode steps after it, or 3 int8-cache
+    decode steps from a seeded cache; every result gathered whole on the
+    host."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import build_step
+    from repro_torch.models import attention, build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_map, tree_unflatten)
+
+    seq, rows, cache_len = SHARDED_REDUCED_SEQ, 4, SHARDED_REDUCED_DECODE
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              **FAMILY_REDUCED_CUTS.get(arch, {}))
+    params = build_model(cfg, dtype=torch.float32, device=mesh.device).init(
+        torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        cfg.vocab_size, seq, seed=0).batch(0, SHARDED_REDUCED_BATCH).items()}
+    if cfg.frontend == "audio":
+        batch["frontend_embeds"] = torch.from_numpy(
+            np.random.default_rng(1).standard_normal(
+                (SHARDED_REDUCED_BATCH, cfg.encoder.n_frames, cfg.d_model)
+            ).astype(np.float32))
+    specs = shd.param_shardings(cfg, mesh, params)
+    whole = lambda tree: [t.full_tensor().cpu() for t in tree_leaves(tree)]
+    out = {}
+    dec_shape = dataclasses.replace(get_shape("decode_32k"),
+                                    seq_len=cache_len, global_batch=rows)
+    if arch in FAMILY_SHARDED_REDUCED:
+        shape = dataclasses.replace(get_shape("train_4k"), seq_len=seq,
+                                    global_batch=SHARDED_REDUCED_BATCH)
+        for name in ("auto", "mlfabric"):
+            sp = specs if name == "auto" else tree_map(shd.strip_data, specs)
+            dp = shd.shard_tree(params, mesh, sp)
+            p2, _, met = build_step(cfg, shape, mesh, lr=REDUCED_STEP_LR,
+                                    **SHARDED_TRAIN[name]).fn(
+                dp, momentum_sgd_init(dp), batch)
+            out[name] = [torch.tensor([float(met["loss"]),
+                                       float(met["aux_loss"])])] + whole(p2)
+        dp = shd.shard_tree(params, mesh, specs)
+        pb = {k: v[:rows] for k, v in batch.items() if k != "labels"}
+        attention.set_attention_impl("pallas")
+        zero_launches()
+        try:
+            logits, cache = build_step(cfg, dataclasses.replace(
+                get_shape("prefill_32k"), seq_len=seq, global_batch=rows),
+                mesh).fn(dp, pb)
+        finally:
+            attention.set_attention_impl("blockwise")
+        out["flash_launches"] = ops_launches()["flash_attention"]
+        out["prefill"] = [logits.full_tensor().cpu()] + whole(cache)
+        named, cdef = tree_flatten_with_path(cache["layers"])
+        full = dict(cache, layers=tree_unflatten(cdef, [
+            torch.cat([t.full_tensor(), t.full_tensor().new_zeros(
+                t.shape[:2] + (cache_len - seq,) + t.shape[3:])], dim=2)
+            if path.split("/")[-1] in POSITIONAL else t.full_tensor()
+            for path, t in named]))
+        if "cross_kv" in cache:
+            full["cross_kv"] = tuple(t.full_tensor() for t in
+                                     cache["cross_kv"])
+        out["decode"] = _reduced_decode(cfg, mesh, dp, full, batch, dec_shape)
+    if arch in FAMILY_SHARDED_Q8:
+        rng = np.random.default_rng(2)
+        full = tf.init_cache(cfg, rows, cache_len, torch.float32,
+                             kv_int8=True, device=mesh.device)
+        for k, t in full["layers"].items():
+            part = t[:, :, :seq]
+            part.copy_(torch.from_numpy(
+                rng.uniform(1e-3, 2e-2, part.shape).astype(np.float32)
+                if k.endswith("_s") else
+                rng.integers(-127, 128, part.shape).astype(np.int8)))
+        out["decode_q8"] = _reduced_decode(
+            cfg, mesh, shd.shard_tree(params, mesh, specs), full, batch,
+            dec_shape)
+    return out
+
+
+def _reduced_decode(cfg, mesh, params, full, batch, shape) -> list:
+    """3 decode steps from ``full`` laid out by ``cache_shardings``: each
+    step's logits and the cache after them, whole on the host."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import build_step
+    from repro_torch.tree import tree_leaves
+    dc = shd.shard_tree(full, mesh, shd.cache_shardings(
+        cfg, mesh, full, shape.global_batch))
+    step = build_step(cfg, shape, mesh)
+    out = []
+    for i in range(FAMILY_DECODE_STEPS):
+        logits, dc = step.fn(params, dc, batch["labels"][
+            :shape.global_batch, i:i + 1], SHARDED_REDUCED_SEQ + i)
+        out.append(logits.full_tensor().cpu())
+    return out + [t.full_tensor().cpu() for t in tree_leaves(dc["layers"])]
+
+
+def family_sharded_reduced(meshes: dict, cpu_meshes: dict) -> dict:
+    """The reduced part: each family's runs on each mesh, card against the
+    same world on the CPU within ``FAMILY_REDUCED_TOL`` (atol and rtol;
+    an int8 payload within one step)."""
+    import torch
+    out = {}
+    for arch in dict.fromkeys(FAMILY_SHARDED_REDUCED + FAMILY_SHARDED_Q8):
+        for mname in FAMILY_MESHES:
+            card = _reduced_family_runs(arch, meshes[mname])
+            cpu = _reduced_family_runs(arch, cpu_meshes[mname])
+            res = {}
+            for k, a in card.items():
+                if k == "flash_launches":
+                    res[k] = a
+                    continue
+                b = cpu[k]
+                ok = len(a) == len(b) and all(
+                    x.shape == y.shape and (
+                        float((x.float() - y.float()).abs().max()) <= 1
+                        if x.dtype == torch.int8 else
+                        bool(torch.allclose(x, y, rtol=FAMILY_REDUCED_TOL,
+                                            atol=FAMILY_REDUCED_TOL)))
+                    for x, y in zip(a, b))
+                res[k] = {"ok": ok, "max_abs_diff": max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(a, b))}
+            out[f"{arch}/{mname}"] = res
+    return out
+
+
+def sharded_family_rank(ref_dir: str) -> None:
+    """One rank of cell S's world (four gloo processes on the one card,
+    DTensor's collectives staged through the host): the reduced part
+    first, then S1, S2 and S3 against the unsharded runs in ``ref_dir``.
+    Prints one JSON line."""
+    import torch
+    from repro_torch.launch import init_rank, make_mesh
+
+    rank, _, _ = init_rank("gloo", host_staged_collectives=True)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    meshes = {k: make_mesh(*m, device=dev) for k, m in FAMILY_MESHES.items()}
+    cpu_meshes = {k: make_mesh(*m, device="cpu")
+                  for k, m in FAMILY_MESHES.items()}
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    res["reduced_families"] = family_sharded_reduced(meshes, cpu_meshes)
+    res["reduced_s"] = time.perf_counter() - t0
+    for part in ("S1", "S2", "S3"):
+        t0 = time.perf_counter()
+        mesh = meshes[FAMILY_PARTS[part]["mesh"]]
+        res[part] = (family_sharded_serve(ref_dir, mesh) if part == "S2"
+                     else family_sharded_train(ref_dir, part, mesh))
+        res[part]["s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+
+
+def phase_sharded_families() -> dict:
+    """Cell S: granite-moe, deepseek-v2, jamba, rwkv6 and whisper on a
+    ``model`` axis, on a world of four gloo processes sharing the one card
+    (``sharded_family_rank``).  First the reduced families in f32, card
+    against CPU within ``FAMILY_REDUCED_TOL``: the auto and MLfabric steps
+    on ``(pod=1, data=2, model=2)`` and ``(1, 1, 4)``, the prefill under
+    "pallas", 3 decode steps, and int8-cache decode on qwen2-0.5b and
+    granite.  Then at full width, each against the unsharded run on this
+    card from the same params and inputs (``sharded_families_reference``):
+    S1, granite-moe whole, auto and MLfabric on ``(1, 2, 2)`` at seq 1,024
+    x batch 2 (loss and sampled params within ``SHARDED_BF16_TOL``; the
+    MLfabric step reduces over ``data``, launching ``grad_aggregate``);
+    S2, one deepseek-v2 layer on ``(1, 1, 4)``: the 4,096-token prefill
+    and 3 decode steps at batch 16 on a latent cache split over
+    ``model`` (logits and written rows within ``BF16_PREFILL_TOL`` of the
+    largest value); S3, rwkv6 whole, the auto step on ``(1, 1, 4)``.
+    Returns the launches of S1-S3 summed over the ranks."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import run_local_world
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ref_dir = tempfile.mkdtemp(prefix="sharded_families_")
+    try:
+        ref = sharded_families_reference(ref_dir)
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(Path(root) / "src"), root]), OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        outs = run_local_world(
+            "import sys, chip_smoke; "
+            "chip_smoke.sharded_family_rank(sys.argv[4])",
+            4, args=(ref_dir,), env=env, timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    emit({"phase": "sharded_families", "cell": "S",
+          "world": "4 gloo processes on one card, DTensor collectives "
+          "staged through the host", "meshes": FAMILY_MESHES,
+          "nvidia_smi": nvidia_smi_line(), "reduced": FAMILY_SHARDED_CUTS,
+          "limits": {"train_bf16": SHARDED_BF16_TOL,
+                     "serve_bf16": BF16_PREFILL_TOL,
+                     "reduced_f32": FAMILY_REDUCED_TOL},
+          "world_s": world_s, "phase_s": time.perf_counter() - t_phase,
+          **ref, "ranks": res})
+    return sharded_families_checks(res)
+
+
+def sharded_families_checks(res: list) -> dict:
+    """Cell S's checks on the ranks' results; returns the launches of
+    S1-S3 summed over the ranks."""
+    totals = dict.fromkeys(KERNELS, 0)
+    for r in res:
+        who = f"sharded_families rank {r['rank']}"
+        for key, runs in r["reduced_families"].items():
+            for k, v in runs.items():
+                check(k == "flash_launches" or v["ok"],
+                      f"{who} reduced {key} {k}: card vs CPU {v}")
+            if not key.startswith("deepseek") and \
+                    not key.startswith("rwkv") and "flash_launches" in runs:
+                check(runs["flash_launches"] > 0,
+                      f"{who} reduced {key}: the prefill launched no flash")
+        for part in ("S1", "S2", "S3"):
+            v = r[part]
+            check(v["param_bytes_held"] == v["param_bytes_predicted"],
+                  f"{who} {part}: holds {v['param_bytes_held']} param bytes, "
+                  f"param_shardings predicts {v['param_bytes_predicted']}")
+        for part in ("S1", "S3"):
+            for name in FAMILY_PARTS[part]["train"]:
+                t = r[part][name]
+                check(all(math.isfinite(l) for l in t["losses"]),
+                      f"{who} {part} {name}: non-finite loss")
+                check(abs(t["losses"][0] - t["loss_ref"])
+                      <= SHARDED_BF16_TOL * abs(t["loss_ref"]),
+                      f"{who} {part} {name}: loss {t['losses'][0]} vs "
+                      f"{t['loss_ref']}")
+                check(t["sample_close"] and t["sums_close"]
+                      and t["placements_kept"] and t["sample_held"] > 0,
+                      f"{who} {part} {name}: params {t}")
+                for k in KERNELS:
+                    totals[k] += t["launches"][k]
+        launched = r["S1"]["mlfabric"]["launches"]
+        check(launched["grad_aggregate"] > 0,
+              f"{who}: S1's MLfabric step launched no grad_aggregate: "
+              f"{launched}")
+        s2 = r["S2"]
+        check(all(v <= BF16_PREFILL_TOL for v in s2["prefill"]["rel_err"]
+                  .values()), f"{who}: S2 prefill {s2['prefill']}")
+        for e in s2["decode"]["rel_err"]:
+            check(all(v <= BF16_PREFILL_TOL for v in e.values()),
+                  f"{who}: S2 decode {e}")
+        for k in KERNELS:
+            totals[k] += s2["prefill"]["launches"][k] + \
+                s2["decode"]["launches"][k]
     return totals
 
 
@@ -4437,6 +5125,7 @@ def main() -> int:
     family_launches["whisper_train"] = phase_whisper_train()
     family_launches["rwkv_train"] = phase_rwkv_train()
     family_launches["sharded"] = phase_sharded()
+    family_launches["sharded_families"] = phase_sharded_families()
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -48,6 +48,7 @@ from ..dist.sharding import data_axes
 from ..models import transformer as tf
 from ..models.api import value_and_grad
 from ..models.layers import is_dtensor
+from ..models.moe import global_batch_stats
 from ..optim.sgd import MomentumState, momentum_sgd_update
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .mesh import Mesh
@@ -114,8 +115,13 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                      remat: bool = True, microbatches: int = 1) -> StepBundle:
     """The "auto" step: gradients averaged over the whole world with one
     all-reduce per leaf, which is what GSPMD does implicitly in the
-    reference.  ``microbatches > 1`` accumulates the gradients of
-    sequential slices of each rank's batch in f32."""
+    reference.  The MoE load-balance loss is taken over the global batch
+    (``models.moe.global_batch_stats``), as the reference takes it, and
+    the reported ``loss`` and ``aux_loss`` are the global ones on every
+    rank.  ``microbatches > 1`` accumulates in f32 the gradients of
+    sequential slices of the global batch, as the reference cuts them:
+    microbatch i is global rows ``[i B/m, (i+1) B/m)``, of which each rank
+    takes its share."""
     if mesh.device_mesh is not None:
         return _sharded_train_step(cfg, shape, mesh, lr=lr, gamma=gamma,
                                    remat=remat, microbatches=microbatches)
@@ -126,14 +132,17 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                          f"into {microbatches} microbatches on {world} ranks")
 
     def train_step(params, opt_state, batch):
-        local = _local_batch(batch, mesh, axes)
         if microbatches == 1:
-            metrics, grads = _metrics_and_grads(params, local, cfg, remat)
+            with global_batch_stats(world):
+                metrics, grads = _metrics_and_grads(
+                    params, _local_batch(batch, mesh, axes), cfg, remat)
         else:
             grads = None
             loss = aux = 0.0
-            for mb in _split(local, microbatches):
-                m, g = _metrics_and_grads(params, mb, cfg, remat)
+            for mb in _split(batch, microbatches):
+                with global_batch_stats(world):
+                    m, g = _metrics_and_grads(
+                        params, _local_batch(mb, mesh, axes), cfg, remat)
                 g = [x.to(torch.float32) for x in tree_leaves(g)]
                 grads = g if grads is None else [a + b
                                                  for a, b in zip(grads, g)]

@@ -43,8 +43,8 @@ from ..dist.flatbuf import encode_int8, int8_scale
 from ..dist.policy import P, _fit_spec
 from ..dist.sharding import batch_spec_axes, mesh_view, placements
 from ..kernels.ops import flash_attention_op
-from .layers import (Params, apply_rope, dense, dense_init, is_dtensor,
-                     whole_last_dim, whole_rows)
+from .layers import (Params, _ContiguousGrad, apply_rope, dense, dense_init,
+                     is_dtensor, whole_last_dim, whole_rows)
 
 NEG_INF = -1e30
 
@@ -190,20 +190,6 @@ class _FlashAttention(torch.autograd.Function):
                 None, None, None, None)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous: the
-    attention's backward gives permuted gradients, and DTensor's ``view``
-    of a gradient whose local tensor is permuted fails (PyTorch 2.13)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _attend_local(fn: Callable, q, k, v):
     """``fn(q, k, v)`` on this rank's local heads: q, k, v ([B, S, H, D]
     DTensors) are laid out with the batch over the data axes where it
@@ -288,50 +274,88 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # [B,KVH,G,S]
     del kf
     valid = offset + torch.arange(s, device=q.device) < length
-    scores = torch.where(valid, scores, NEG_INF)
-    if group is None:
-        probs = torch.softmax(scores, dim=-1)
-    else:
-        peak = torch.amax(scores, dim=-1, keepdim=True)
-        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
-        probs = torch.exp(scores - peak)
-        total = torch.sum(probs, dim=-1, keepdim=True)
-        dist.all_reduce(total, group=group)
-        probs = probs / total
-    out = torch.matmul(probs.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
-    if group is not None:
-        out32 = out.to(torch.float32)
-        dist.all_reduce(out32, group=group)
-        out = out32.to(out.dtype)
+    probs = _split_softmax(torch.where(valid, scores, NEG_INF), group)
+    out = _sum_blocks(torch.matmul(probs.to(v_cache.dtype),
+                                   v_cache.permute(0, 2, 1, 3)), group)
     return out.reshape(b, 1, h, dv)
 
 
-def _decode_sharded(q, k, v, k_cache, v_cache, pos: int):
-    """``gqa_decode``'s write and attention on a DTensor cache laid out by
+def _split_softmax(scores: torch.Tensor,
+                   group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The softmax over the last dim of ``scores``; with ``group`` each
+    rank holds a block of the positions, and the max and the sum of the
+    exponentials are reduced over the group by two all-reduces."""
+    if group is None:
+        return torch.softmax(scores, dim=-1)
+    peak = torch.amax(scores, dim=-1, keepdim=True)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+    probs = torch.exp(scores - peak)
+    total = torch.sum(probs, dim=-1, keepdim=True)
+    dist.all_reduce(total, group=group)
+    return probs / total
+
+
+def _sum_blocks(out: torch.Tensor,
+                group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The ranks' partial products over their blocks of positions summed
+    over ``group`` in f32 (``out`` itself without a group)."""
+    if group is None:
+        return out
+    out32 = out.to(torch.float32)
+    dist.all_reduce(out32, group=group)
+    return out32.to(out.dtype)
+
+
+class _CacheBlock:
+    """This rank's block of a DTensor decode cache laid out by
     ``cache_shardings`` (the batch over the data axes, the sequence over
-    ``model``).  The new token's q, k, v take the cache's batch layout,
-    replicated elsewhere; the rank holding position ``pos`` writes it into
-    its local slice in place, and every rank attends over its slice
-    (``decode_attention`` with the ``model`` group: the split softmax).
-    Returns the attention output [B, 1, H, D] in the token's layout."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    dm, cpl = k_cache.device_mesh, k_cache.placements
-    tok = [Shard(0) if pl == Shard(0) else Replicate() for pl in cpl]
-    ql, kl, vl = (t.redistribute(dm, tok).to_local() for t in (q, k, v))
+    ``model``): the new token's placements (the cache's batch layout,
+    replicated elsewhere), the block's first position ``lo`` and length,
+    and the group its sequence is split over (None where it is whole)."""
+
+    def __init__(self, cache: torch.Tensor):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh, cpl = cache.device_mesh, cache.placements
+        self.tok = [Shard(0) if pl == Shard(0) else Replicate()
+                    for pl in cpl]
+        seq = [i for i, pl in enumerate(cpl) if pl == Shard(1)]
+        if len(seq) > 1:
+            raise ValueError(f"cache sequence split over {len(seq)} mesh "
+                             "axes; the cache rules split it over model "
+                             "only")
+        self.n = cache.to_local().shape[1]
+        self.lo, self.group = 0, None
+        if seq:
+            self.lo = self.mesh.get_coordinate()[seq[0]] * self.n
+            self.group = self.mesh.get_group(seq[0])
+
+    def holds(self, pos: int) -> bool:
+        return self.lo <= pos < self.lo + self.n
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """A token tensor's local rows in the token layout."""
+        return t.redistribute(self.mesh, self.tok).to_local()
+
+    def wrap(self, t: torch.Tensor) -> torch.Tensor:
+        """A local result in the token layout, as a DTensor."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, self.tok, run_check=False)
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos: int):
+    """``gqa_decode``'s write and attention on a DTensor cache: the rank
+    holding position ``pos`` writes the new k and v into its block in
+    place, and every rank attends over its block (``decode_attention``
+    with the ``model`` group: the split softmax).  Returns the attention
+    output [B, 1, H, D] in the token's layout."""
+    blk = _CacheBlock(k_cache)
+    ql, kl, vl = (blk.local(t) for t in (q, k, v))
     kc, vc = k_cache.to_local(), v_cache.to_local()
-    seq = [i for i, pl in enumerate(cpl) if pl == Shard(1)]
-    if len(seq) > 1:
-        raise ValueError(f"cache sequence split over {len(seq)} mesh axes; "
-                         "the cache rules split it over model only")
-    lo, group = 0, None
-    if seq:
-        lo = dm.get_coordinate()[seq[0]] * kc.shape[1]
-        group = dm.get_group(seq[0])
-    if lo <= pos < lo + kc.shape[1]:
-        kc[:, pos - lo] = kl[:, 0]
-        vc[:, pos - lo] = vl[:, 0]
-    out = decode_attention(ql[:, 0], kc, vc, pos + 1, offset=lo, group=group)
-    return DTensor.from_local(out, dm, tok, run_check=False)
+    if blk.holds(pos):
+        kc[:, pos - blk.lo] = kl[:, 0]
+        vc[:, pos - blk.lo] = vl[:, 0]
+    return blk.wrap(decode_attention(ql[:, 0], kc, vc, pos + 1,
+                                     offset=blk.lo, group=blk.group))
 
 
 # --------------------------------------------------------------------------- #
@@ -365,7 +389,7 @@ def _promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _q_proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ wq`` (plus ``bq``), x widened as JAX's promotion would."""
-    q = _promote(x, p["wq"]) @ p["wq"]
+    q = dense(_promote(x, p["wq"]), p["wq"])
     return q + p["bq"] if "bq" in p else q
 
 
@@ -378,13 +402,12 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     v = dense(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (_split_heads(q, b, s, h, hd), _split_heads(k, b, s, kvh, hd),
-            _split_heads(v, b, s, kvh, hd))
+    return split_heads(q, h, hd), split_heads(k, kvh, hd), split_heads(
+        v, kvh, hd)
 
 
-def _split_heads(t: torch.Tensor, b: int, s: int, n: int, hd: int
-                 ) -> torch.Tensor:
-    """[B, S, n * hd] -> [B, S, n, hd].  A DTensor split along its last dim
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[..., n * hd] -> [..., n, hd].  A DTensor split along its last dim
     into pieces that hold no whole number of heads (2 KV heads over a
     ``model`` axis of 4) is made whole along it first, as GSPMD would."""
     if is_dtensor(t):
@@ -394,7 +417,7 @@ def _split_heads(t: torch.Tensor, b: int, s: int, n: int, hd: int
             if isinstance(pl, Shard) and pl.dim == t.ndim - 1)
         if n % pieces:
             t = whole_last_dim(t)
-    return t.reshape(b, s, n, hd)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -411,7 +434,7 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     computed here."""
     b, s, _ = x.shape
     if xattn_kv is not None:
-        q = _q_proj(p, x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        q = split_heads(_q_proj(p, x), cfg.n_heads, cfg.head_dim)
         k, v = xattn_kv
         causal = False
     else:
@@ -454,10 +477,21 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 def gqa_cross_decode(p: Params, x: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, n_valid: int) -> torch.Tensor:
     """Cross-attention of one decode token x [B, 1, d] against the fixed
-    encoder k, v [B, F, KVH, D], its first ``n_valid`` frames."""
-    q = _q_proj(p, x).reshape(x.shape[0], -1, k.shape[3])     # [B, H, D]
-    out = decode_attention(q, k, v, n_valid)
-    return out.reshape(x.shape[0], 1, -1) @ p["wo"]
+    encoder k, v [B, F, KVH, D], its first ``n_valid`` frames.  On a
+    DTensor k and v laid out by ``cache_shardings`` (the frames over
+    ``model``) every rank attends over its block of frames, with the split
+    softmax; k and v are only read."""
+    d = k.shape[3]
+    q = _q_proj(p, x)
+    q = split_heads(q, q.shape[-1] // d, d)[:, 0]               # [B, H, D]
+    if is_dtensor(k):
+        blk = _CacheBlock(k)
+        out = blk.wrap(decode_attention(blk.local(q), k.to_local(),
+                                        v.to_local(), n_valid, offset=blk.lo,
+                                        group=blk.group))
+    else:
+        out = decode_attention(q, k, v, n_valid)
+    return dense(out.reshape(x.shape[0], 1, -1), p["wo"])
 
 
 def quantize_kv(t: torch.Tensor, *, reciprocal: bool = True
@@ -480,34 +514,44 @@ def gqa_decode_q8(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     symmetric scale per (position, KV head), written in place at ``pos``.
     The reference computes the scale as ``max|t| / 127.0``, which ``jit``
     (its serving path) turns into a multiply by f32(1/127); this is the
-    jitted scale (``quantize_kv``)."""
-    if is_dtensor(cache["k_q"]):
-        raise NotImplementedError("an int8 KV cache on a model axis is not "
-                                  "ported; decode it unsharded")
-    b = x.shape[0]
+    jitted scale (``quantize_kv``).  On a DTensor cache (the sequence over
+    ``model``) the new token is quantized whole, the rank holding ``pos``
+    writes it into its block, and every rank attends over its block with
+    the split softmax, as ``gqa_decode`` does."""
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         q, k = _rope_at(q, k, pos, cfg)
-    for name, t in (("k", k), ("v", v)):
-        qv, sv = quantize_kv(t)
-        cache[f"{name}_q"][:, pos] = qv[:, 0]
-        cache[f"{name}_s"][:, pos] = sv[:, 0]
-    k_q, v_q, k_s, v_s = (cache[n] for n in ("k_q", "v_q", "k_s", "v_s"))
+    names = ("k_q", "v_q", "k_s", "v_s")
+    blk = _CacheBlock(cache["k_q"]) if is_dtensor(cache["k_q"]) else None
+    if blk is not None:
+        q, k, v = (blk.local(t) for t in (q, k, v))
+    k_q, v_q, k_s, v_s = (cache[n].to_local() if blk else cache[n]
+                          for n in names)
+    lo, group = (blk.lo, blk.group) if blk else (0, None)
+    if blk is None or blk.holds(pos):
+        for (tq, ts), t in (((k_q, k_s), k), ((v_q, v_s), v)):
+            qv, sv = quantize_kv(t)
+            tq[:, pos - lo] = qv[:, 0]
+            ts[:, pos - lo] = sv[:, 0]
 
     kvh, h, dk = k_q.shape[2], q.shape[2], q.shape[-1]
     g = h // kvh
     scale = 1.0 / math.sqrt(dk)
+    b = q.shape[0]                      # this rank's rows
     qg = q[:, 0].reshape(b, kvh, g, dk).to(torch.float32)
     # scores on the int8 payload, per-position scales folded in afterwards
     scores = torch.matmul(qg, k_q.permute(0, 2, 3, 1).to(torch.float32)
                           ) * scale
     scores = scores * k_s.transpose(1, 2)[:, :, None, :]
-    valid = torch.arange(k_q.shape[1], device=x.device) < pos + 1
-    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+    valid = lo + torch.arange(k_q.shape[1], device=x.device) < pos + 1
+    probs = _split_softmax(torch.where(valid, scores, NEG_INF), group)
     probs_v = probs * v_s.transpose(1, 2)[:, :, None, :]
-    out = torch.matmul(probs_v, v_q.permute(0, 2, 1, 3).to(torch.float32))
-    out = out.reshape(b, 1, h * v_q.shape[-1]).to(x.dtype) @ p["wo"]
-    return out, {"k_q": k_q, "v_q": v_q, "k_s": k_s, "v_s": v_s}
+    out = _sum_blocks(torch.matmul(
+        probs_v, v_q.permute(0, 2, 1, 3).to(torch.float32)), group)
+    out = out.reshape(b, 1, h * v_q.shape[-1]).to(x.dtype)
+    if blk is not None:
+        out = blk.wrap(out)
+    return dense(out, p["wo"]), {n: cache[n] for n in names}
 
 
 # --------------------------------------------------------------------------- #
@@ -545,7 +589,7 @@ def _mla_q(p: Params, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
     """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] after rope)."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = ((x @ p["q_down"]) @ p["q_up"]).reshape(
+    q = dense(dense(x, p["q_down"]), p["q_up"]).reshape(
         b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
@@ -556,7 +600,7 @@ def _mla_latent(p: Params, x: torch.Tensor, pos: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the cache holds for x [B, S, d]: (ckv [B, S, R], krope [B, S,
     rope] after rope), the latent unnormalized, as in the reference."""
-    ckv, krope = torch.split(x @ p["kv_down"], [
+    ckv, krope = torch.split(whole_last_dim(dense(x, p["kv_down"])), [
         cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim], dim=-1)
     return ckv, apply_rope(krope[:, :, None, :], pos, cfg.rope_theta)[:, :,
                                                                        0]
@@ -581,14 +625,15 @@ def mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     pos = torch.arange(s, device=x.device)
     q_nope, q_rope = _mla_q(p, x, pos, cfg)
     ckv, krope = _mla_latent(p, x, pos, cfg)
-    k_nope = (ckv @ p["k_up"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = (ckv @ p["v_up"]).reshape(b, s, h, m.v_head_dim)
+    k_nope = dense(ckv, p["k_up"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = dense(ckv, p["v_up"]).reshape(b, s, h, m.v_head_dim)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim).to(k_nope.dtype)], dim=-1)
     out = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                               causal=True, kv_block=kv_block,
                               scale=_mla_scale(cfg))
-    return out.reshape(b, s, -1) @ p["wo"], {"ckv": ckv, "krope": krope}
+    return dense(out.reshape(b, s, -1), p["wo"]), {"ckv": ckv,
+                                                   "krope": krope}
 
 
 def _f32_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -621,20 +666,32 @@ def mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     posv = torch.full((1,), pos, device=x.device)
     q_nope, q_rope = _mla_q(p, x, posv, cfg)
     ckv_new, krope_new = _mla_latent(p, x, posv, cfg)
-    cache["ckv"][:, pos] = ckv_new[:, 0]
-    cache["krope"][:, pos] = krope_new[:, 0]
-    ckv, krope = cache["ckv"], cache["krope"]
-
     k_up = p["k_up"].reshape(r, h, m.qk_nope_head_dim)
     q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], k_up)
+    q_rope = q_rope[:, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+    blk = _CacheBlock(ckv) if is_dtensor(ckv) else None
+    if blk is not None:
+        # this rank's block of the latent (the sequence over ``model``)
+        q_eff, q_rope, ckv_new, krope_new = (blk.local(t) for t in (
+            q_eff, q_rope, ckv_new, krope_new))
+        ckv, krope = ckv.to_local(), krope.to_local()
+    lo, group = (blk.lo, blk.group) if blk else (0, None)
+    if blk is None or blk.holds(pos):
+        ckv[:, pos - lo] = ckv_new[:, 0]
+        krope[:, pos - lo] = krope_new[:, 0]
+
     scores = _f32_scores(q_eff, ckv)
-    scores += _f32_scores(q_rope[:, 0], krope)
+    scores += _f32_scores(q_rope, krope)
     scores *= _mla_scale(cfg)
-    valid = torch.arange(ckv.shape[1], device=x.device) < pos + 1
-    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
+    valid = lo + torch.arange(ckv.shape[1], device=x.device) < pos + 1
+    probs = _split_softmax(scores.masked_fill_(~valid, NEG_INF), group)
     del scores
-    out_latent = torch.matmul(probs.to(ckv.dtype), ckv)       # [B, H, R]
+    out_latent = _sum_blocks(torch.matmul(probs.to(ckv.dtype), ckv),
+                             group)                           # [B, H, R]
+    if blk is not None:
+        out_latent = blk.wrap(out_latent)
     out = torch.einsum("bhr,rhd->bhd", out_latent,
                        p["v_up"].reshape(r, h, m.v_head_dim))
-    return out.reshape(b, 1, h * m.v_head_dim) @ p["wo"], {"ckv": ckv,
-                                                           "krope": krope}
+    return dense(out.reshape(b, 1, h * m.v_head_dim), p["wo"]), {
+        "ckv": cache["ckv"], "krope": cache["krope"]}

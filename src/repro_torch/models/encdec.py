@@ -37,8 +37,9 @@ from ..configs.base import ModelConfig
 from ..dist.policy import constrain
 from . import attention as attn
 from . import transformer as tf
-from .layers import (Params, apply_mlp, apply_norm, embed_tokens, init_mlp,
-                     init_norm, sinusoidal_positions, unembed)
+from .layers import (Params, apply_mlp, apply_norm, dense, embed_tokens,
+                     init_mlp, init_norm, is_dtensor, sinusoidal_positions,
+                     unembed)
 
 CrossKV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -91,13 +92,22 @@ def cross_kv(cross: Params, enc_out: torch.Tensor, cfg: ModelConfig
     each [L, B, F, KVH, D]."""
     b, f, _ = enc_out.shape
     p = cross["attn"]
-    k = enc_out[None] @ p["wk"][:, None]
-    v = enc_out[None] @ p["wv"][:, None]
+    if is_dtensor(enc_out):
+        # a layer at a time: DTensor's broadcast product would flatten
+        # the layers into the batch (PyTorch 2.11)
+        k = torch.stack([dense(enc_out, w) for w in p["wk"].unbind(0)])
+        v = torch.stack([dense(enc_out, w) for w in p["wv"].unbind(0)])
+    else:
+        k = enc_out[None] @ p["wk"][:, None]
+        v = enc_out[None] @ p["wv"][:, None]
     if "bk" in p:
         k = k + p["bk"][:, None, None]
         v = v + p["bv"][:, None, None]
-    shape = (cfg.n_layers, b, f, -1, cfg.head_dim)
-    return k.reshape(shape), v.reshape(shape)
+    # heads that do not divide ``model`` are made whole first
+    # (``head_policy``), as in the self-attention
+    kvh = k.shape[-1] // cfg.head_dim
+    return (attn.split_heads(k, kvh, cfg.head_dim),
+            attn.split_heads(v, kvh, cfg.head_dim))
 
 
 # --------------------------------------------------------------------------- #

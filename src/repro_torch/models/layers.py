@@ -276,6 +276,69 @@ class _WholeRowsGrad(torch.autograd.Function):
         return whole_rows(g)
 
 
+def whole_rows_grad(y: torch.Tensor) -> torch.Tensor:
+    """``y``, whose gradient's rows are made whole on the way back where
+    ``y`` is a DTensor: the output of a block that flattens its rows
+    (the experts' dispatch) and goes back into the sequence-parallel
+    residual."""
+    return _WholeRowsGrad.apply(y) if is_dtensor(y) else y
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: the
+    attention's backward gives permuted gradients, and DTensor's ``view``
+    of a gradient whose local tensor is permuted fails (PyTorch 2.13)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=()):
+    """``fn(*args)`` on each rank's blocks, for a computation that is local
+    to its batch rows and its heads or channels (a recurrence along the
+    sequence, which DTensor would otherwise run op by op and flatten
+    across split dims).  Each of ``args`` (DTensors; plain tensors are
+    taken as replicated) is laid out by its entry of ``specs``, a tuple
+    per dim of ``"B"`` (the batch axes, ``batch_spec_axes`` of the first
+    arg's leading dim), ``"model"`` or None, each dropped where it does
+    not divide.  ``fn`` runs on the local tensors and returns a tuple,
+    whose entry i becomes a DTensor laid out as arg ``out_like[i]``, but
+    a partial sum over the axes of ``partial_over`` that split an arg (a
+    sum over the blocks, as of experts).  An arg replicated over a mesh
+    axis that splits another arg gets its gradient as a partial sum over
+    that axis: each rank's block adds its share."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..dist.policy import P, _fit_spec
+    from ..dist.sharding import batch_spec_axes, mesh_view, placements
+    dm = next(a.device_mesh for a in args if is_dtensor(a))
+    mesh = mesh_view(dm)
+    ba = batch_spec_axes(mesh, args[0].shape[0])
+    whole = []
+    for a, spec in zip(args, specs):
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, dm, [Replicate()] * dm.ndim,
+                                   run_check=False)
+        whole.append((a, placements(mesh, _fit_spec(mesh, P(*(
+            ba if e == "B" else e for e in spec)), tuple(a.shape)))))
+    split = {i for _, pl in whole for i, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    local = [_ContiguousGrad.apply(a.redistribute(dm, pl).to_local(
+        grad_placements=[Partial() if i in split and isinstance(
+            p, Replicate) else p for i, p in enumerate(pl)]))
+        for a, pl in whole]
+    names = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    partial = {names.index(a) for a in partial_over if a in names} & split
+    return tuple(DTensor.from_local(o.contiguous(), dm, [
+        Partial() if j in partial else p for j, p in enumerate(whole[i][1])],
+        run_check=False) for o, i in zip(fn(*local), out_like))
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``.  On DTensors (a model axis) the rows of ``x`` and of the
     gradient that comes back are made whole first (``whole_rows``)."""

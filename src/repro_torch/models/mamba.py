@@ -20,6 +20,7 @@ decode writes its cache.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaConfig, ModelConfig
-from .layers import Params, dense_init, draw_device, normal
+from .layers import (Params, dense, dense_init, draw_device, is_dtensor,
+                     normal, on_local_blocks, whole_rows)
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int, *,
@@ -147,14 +149,24 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         conv_hist, h0 = state["conv"], state["ssm"]
 
-    x_in = x @ p["in_x"]
-    z = x @ p["in_z"]
+    x = whole_rows(x)                   # once for the two
+    x_in = dense(x, p["in_x"])
+    z = dense(x, p["in_z"])
     x_act = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], conv_hist))
-    dt_r, b_ssm, c_ssm = torch.split(x_act @ p["x_proj"], [r, n, n], dim=-1)
-    dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"].to(dt_r.dtype))
-    y, h_final = mamba_scan(x_act, dt, p["a_log"], b_ssm, c_ssm,
-                            p["d_skip"], h0, chunk=chunk)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    dt_r, b_ssm, c_ssm = torch.split(dense(x_act, p["x_proj"]), [r, n, n],
+                                     dim=-1)
+    dt = F.softplus(dense(dt_r, p["dt_proj"]) + p["dt_bias"].to(dt_r.dtype))
+    args = (x_act, dt, p["a_log"], b_ssm, c_ssm, p["d_skip"], h0)
+    if is_dtensor(x_act):
+        # each rank's batch rows and channels
+        y, h_final = on_local_blocks(
+            functools.partial(mamba_scan, chunk=chunk), args,
+            (("B", None, "model"),) * 2 + (("model", None),)
+            + (("B", None, None),) * 2 + (("model",), ("B", "model", None)),
+            out_like=(0, 6))
+    else:
+        y, h_final = mamba_scan(*args, chunk=chunk)
+    out = dense(y * F.silu(z), p["out_proj"])
     conv = torch.cat([conv_hist, x_in], dim=1)[:, t:]
     return out, {"conv": conv, "ssm": h_final}
 

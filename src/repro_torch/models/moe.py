@@ -16,20 +16,31 @@ dropped for that choice.  Dispatch and combine are one-hot einsums, as in
 the reference (plain tensor algebra there too, outside any kernel).  The
 reference scans over the chunks; here the chunks are folded into the
 batch dimension, which gives each group the same slots in one pass.
+
+On a ``model`` axis (DTensors) the experts split over ``model`` run on
+each rank's own groups and experts (``layers.on_local_blocks``), their
+outputs a partial sum over ``model``.  In the data-axis "auto" step
+(``global_batch_stats``) the load-balance loss's two means are taken
+over the global batch.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
-from .layers import Params, activation, apply_mlp, init_mlp, normal
+from .layers import (Params, activation, apply_mlp, dense, init_mlp,
+                     is_dtensor, normal, on_local_blocks, whole_rows,
+                     whole_rows_grad)
 
-__all__ = ["capacity", "init_moe", "moe_forward", "router_topk"]
+__all__ = ["capacity", "global_batch_stats", "init_moe", "moe_forward",
+           "router_topk"]
 
 
 def capacity(tokens_per_group: int, moe: MoEConfig) -> int:
@@ -102,6 +113,53 @@ def _dispatch_chunk(x: torch.Tensor, router_probs: torch.Tensor,
     return dispatch, combine
 
 
+_BATCH_RANKS: list = []
+
+
+@contextmanager
+def global_batch_stats(n_ranks: int):
+    """Within: the batch's rows lie on the ``n_ranks`` ranks of the default
+    process group, each rank computing its own rows' loss, whose gradients
+    the caller averages over the ranks (the data-axis "auto" step).
+    ``moe_forward`` then takes the load-balance loss's two batch means over
+    the global batch, as the reference computes them on it: a product of
+    means is not the mean of the ranks' products."""
+    _BATCH_RANKS.append(n_ranks)
+    try:
+        yield
+    finally:
+        _BATCH_RANKS.pop()
+
+
+def _batch_means(me: torch.Tensor, ce: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean prob, top-1 share) over the global batch under
+    :func:`global_batch_stats`, else as given.  Both are averaged over the
+    ranks by one all-reduce; the mean prob keeps this rank's own gradient
+    (its value is the global one, its gradient this rank's rows'), so the
+    caller's average of the ranks' gradients is the global loss's
+    gradient."""
+    if not _BATCH_RANKS or _BATCH_RANKS[-1] == 1:
+        return me, ce
+    both = torch.stack([me.detach(), ce])
+    dist.all_reduce(both)
+    both = both / _BATCH_RANKS[-1]
+    return both[0] + (me - me.detach()), both[1]
+
+
+def _experts(dispatch: torch.Tensor, combine: torch.Tensor,
+             xc: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor, *, act) -> torch.Tensor:
+    """Groups ``xc`` [G, T, d] through their experts' gated MLPs by the
+    one-hot ``dispatch`` and back by ``combine`` ([G, T, E, C]), as the
+    reference's einsums."""
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xc)          # [G,E,C,d]
+    h = (act(torch.einsum("gecd,edf->gecf", xe, w_gate))
+         * torch.einsum("gecd,edf->gecf", xe, w_up))
+    ye = torch.einsum("gecf,efd->gecd", h, w_down)             # [G,E,C,d]
+    return torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+
+
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP over [B, S, d].  Returns (out [B, S, d], aux loss f32)."""
@@ -113,25 +171,35 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"sequence {s} is not a multiple of the MoE chunk "
                          f"{t}")
     cap = capacity(t, moe)
+    # on a model axis the dispatch groups need the sequence whole
+    x = whole_rows(x)
 
-    router_probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    router_probs = torch.softmax(dense(x.to(torch.float32), p["router"]),
+                                 dim=-1)
 
     # load-balance aux loss over the full sequence, f32
     me = router_probs.mean(dim=(0, 1))                          # [E]
     top1 = torch.argmax(router_probs, dim=-1)   # first index among ties
     ce = F.one_hot(top1, moe.n_experts).to(torch.float32).mean(dim=(0, 1))
+    me, ce = _batch_means(me, ce)
     aux = moe.n_experts * torch.sum(me * ce)
 
     # every (row, chunk) is one dispatch group
     xc = x.reshape(b * (s // t), t, d)
     dispatch, combine = _dispatch_chunk(
         xc, router_probs.reshape(b * (s // t), t, -1), moe, cap)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xc)          # [G,E,C,d]
-    h = (act(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
-         * torch.einsum("gecd,edf->gecf", xe, p["w_up"]))
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])        # [G,E,C,d]
-    out = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
-    out = out.reshape(b, s, d)
+    args = (dispatch, combine, xc, p["w_gate"], p["w_up"], p["w_down"])
+    if is_dtensor(xc):
+        # each rank's groups (its batch rows) through its experts (split
+        # over ``model``), their outputs a partial sum over ``model``
+        out, = on_local_blocks(
+            lambda *a: (_experts(*a, act=act),), args,
+            (("B", None, "model", None),) * 2 + (("B", None, None),)
+            + (("model", None, None),) * 3, out_like=(2,),
+            partial_over=("model",))
+    else:
+        out = _experts(*args, act=act)
+    out = whole_rows_grad(out.reshape(b, s, d))
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, act=cfg.act)
     return out, aux

@@ -34,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, RWKVConfig
-from .layers import Params, activation, dense_init, draw_device, normal
+from .layers import (Params, activation, dense, dense_init, draw_device,
+                     is_dtensor, normal, on_local_blocks, whole_last_dim,
+                     whole_rows)
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, shift: float, *,
@@ -81,7 +83,10 @@ def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
     delta = xx - x
     base = x[None] + delta[None] * p["mu_x"][:, None, None, :]
     b, t, _ = x.shape
-    lora = torch.tanh((x @ p["ts_down"]).reshape(b, t, 5, -1))
+    # the 5 mixes' adapters side by side: whole over ``model`` before they
+    # are told apart (5 * 32 split over 2 or 4 holds no whole mix)
+    lora = torch.tanh(whole_last_dim(dense(x, p["ts_down"])).reshape(
+        b, t, 5, -1))
     adj = torch.einsum("btnl,nld->nbtd", lora, p["ts_up"].to(x.dtype))
     return base + adj * delta[None]
 
@@ -125,6 +130,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     r_cfg: RWKVConfig = cfg.rwkv
     b, t, d = x.shape
     h, hd = r_cfg.n_heads(d), r_cfg.head_dim
+    x = whole_rows(x)           # the token shift and the chunks need it
     if state is None:
         prev_x = x.new_zeros((b, 1, d))
         s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32,
@@ -141,19 +147,26 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return z.reshape(b, t // tc, tc, h, hd).permute(0, 3, 1, 2, 4).to(
             torch.float32)
 
-    w_log = p["w_base"] + (torch.tanh(mw @ p["wd_down"]) @ p["wd_up"]
+    w_log = p["w_base"] + dense(torch.tanh(dense(mw, p["wd_down"])),
+                                p["wd_up"]
                            ).to(torch.float32)
     w = torch.exp(-torch.exp(w_log))                       # decay in (0, 1)
-    y, s_final = _wkv_chunk(chunks(mr @ p["wr"]), chunks(mk @ p["wk"]),
-                            chunks(mv @ p["wv"]), chunks(w),
-                            p["u"].reshape(h, hd), s0)
+    args = (chunks(dense(mr, p["wr"])), chunks(dense(mk, p["wk"])),
+            chunks(dense(mv, p["wv"])), chunks(w), p["u"].reshape(h, hd), s0)
+    if is_dtensor(x):
+        # each rank's batch rows and heads
+        y, s_final = on_local_blocks(
+            _wkv_chunk, args, (("B", "model", None, None, None),) * 4
+            + (("model", None), ("B", "model", None, None)), out_like=(0, 5))
+    else:
+        y, s_final = _wkv_chunk(*args)
     y = y.reshape(b, h, t, hd)
     # per-head group norm, then the gate
     mean = torch.mean(y, dim=-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
     y = (y - mean) * torch.rsqrt(var + 64e-5)
     y = y.transpose(1, 2).reshape(b, t, d).to(x.dtype) * p["ln_x_scale"]
-    out = (y * F.silu(mg @ p["wg"])) @ p["wo"]
+    out = dense(y * F.silu(dense(mg, p["wg"])), p["wo"])
     return out, {"shift": x[:, -1:], "wkv": s_final}
 
 
@@ -195,8 +208,9 @@ def channel_mix(p: Params, x: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (out, {"cm_shift": the last token})."""
+    x = whole_rows(x)
     prev = state["cm_shift"] if state is not None \
         else torch.zeros_like(x[:, :1])
     mixed = x + (_token_shift(x, prev) - x) * p["mu"]
-    k = activation("relu_sq")(mixed @ p["wk"])
-    return k @ p["wv"], {"cm_shift": x[:, -1:]}
+    k = activation("relu_sq")(dense(mixed, p["wk"]))
+    return dense(k, p["wv"]), {"cm_shift": x[:, -1:]}
