@@ -48,19 +48,30 @@ toolkit.  Every line it prints is one JSON object:
 7. ``reduced_tier_parity``: the reduced qwen2-0.5b's f32 gradient through
    the switch, hierarchical, keep_inter and switch + keep_inter tiers on
    the card and on the CPU: ``torch.equal``.
-8. ``mlfabric_step``: the in-graph MLfabric step
+8. ``dryrun`` (cell U): ``python -m repro_torch.launch.dryrun`` on one
+   production cell, qwen2-0.5b ``train_4k`` on 16x16 (rank 0 of a fake
+   256-rank world, fake tensors on the card), in a subprocess: ``ok``, its
+   per-rank FLOPs, bytes, collective bytes and peak, and its trace
+   seconds; it is started after ``elastic`` and read after
+   ``reduced_family_parity`` (it traces on the host's CPU beside the
+   parity phases, which report no time).  Here, before ``mlfabric_step``,
+   the same analysis (``launch/op_analysis.py``) on this process's
+   ``(pod=1, data=1)`` mesh predicts the peaks of cell T's two steps and
+   of cell B's plain ``mlfabric_step``, printed before they run.
+9. ``mlfabric_step``: the in-graph MLfabric step
    (``launch.steps.build_step(..., grad_path="mlfabric")``) on the
    full-width Qwen2-0.5B in bf16 at seq 4096, global batch 2, in three
    configurations of 1 warm-up and 3 timed steps each; finite losses,
    kernel launches equal to buckets x steps (x chunks), and agreement with
-   the "auto" step.
-9. ``tiers_setup`` and ``tiers``: ``mlfabric_grad_reduce`` of the
+   the "auto" step; the plain configuration's first-step peak within
+   ``PEAK_PRED_TOL`` of the dry-run's prediction.
+10. ``tiers_setup`` and ``tiers``: ``mlfabric_grad_reduce`` of the
    full-width gradient (one forward and backward, 494,147,456 values, 10
    buckets) with the host, switch, hierarchical, keep_inter (25% transport
    drops) and switch + keep_inter tiers, 1 warm-up and 3 timed reduces
    each: ms per reduce, launches, peak memory and exact checks; then 3
    rounds of one sender's ``ErrorFeedback`` over the embedding bucket.
-10. ``kernel`` lines for ``flash_attention`` (in step 3): Qwen2-0.5B's 14/2
+11. ``kernel`` lines for ``flash_attention`` (in step 3): Qwen2-0.5B's 14/2
    heads of 64 in bf16, causal, timed at (B 2, S 4096) and at the prefill
    shape (B 1, S 32768) beside its plain version, SDPA and its bound
    (both products on the bf16 tensor cores; the earlier bound with p.v
@@ -74,75 +85,75 @@ toolkit.  Every line it prints is one JSON object:
    jamba's attention layer (32/8 heads of 128, S 32768) and whisper's
    decoder prefill (B 32, S 32768, 6/6 heads of 64); checked, not causal,
    at the reduced whisper's encoder shape (S 16, 4/2 heads of 32).
-11. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
+12. ``reduced_serve_parity``: the reduced qwen2-0.5b and stablelm-1.6b in
    f32 under the "pallas" impl, card against CPU: prefill logits and
    cache, 24 decode steps (teacher-forced, then greedy) with the
    model-dtype and the int8 cache; greedy tokens identical.
-12. ``serve``: the full-width Qwen2-0.5B in bf16: a 32k prefill through
+13. ``serve``: the full-width Qwen2-0.5B in bf16: a 32k prefill through
    ``build_step(prefill_32k)`` at batch 1 (24 flash launches each) against
    the "blockwise" impl; a ``decode_32k`` step at batch 128 against a
    51.5 GB cache at pos 32767 (written in place); ``launch.serve.serve``
    on 8 requests of 128 tokens, batch 4, 64 new tokens; prefill against
    teacher-forced decode on the first batch, in bf16 and in f32.
-13. ``train``: the training CLI (``launch.train``) on the full-width
+14. ``train``: the training CLI (``launch.train``) on the full-width
    Qwen2-0.5B, 4 steps at batch 8 x seq 128 with checkpoints at steps 2
    and 4 and the bounded-divergence replica; the step-4 checkpoint moved
    out, the same command resumes from step 2 and must land on the same
    step-4 params and momentum, bit for bit.  Seconds per step, save and
    restore, the replica's syncs and savings, peak memory.
-14. ``pod_async``: ``PodAsyncTrainer(compress=True)`` at full width, 4
+15. ``pod_async``: ``PodAsyncTrainer(compress=True)`` at full width, 4
    pods of 2 local steps at seq 256 x batch 2, 8 commits: one quantize
    and one dequant_aggregate launch per pod delta, nothing else.
-15. ``elastic``: an ``ElasticSession`` with the CLI's step at full width
+16. ``elastic``: an ``ElasticSession`` with the CLI's step at full width
    and a replica; a ``ServerFail`` promotes it: the replica's step and
    params, its lead as ``lost_updates``, finite losses after.
-16. ``reduced_ps_parity``: the reduced qwen2-0.5b in f32 through
+17. ``reduced_ps_parity``: the reduced qwen2-0.5b in f32 through
    ``PodAsyncTrainer`` (int8 wire and without) and ``SyncTrainer``, card
    against CPU on seeds 0-2: identical schedules, params and losses within
    the limits stated at ``PS_PARITY_LEAF_TOL``; on seed 0 the int8 wire
    done on the host must give the kernels' params bit for bit, and a
    planted round-toward-zero wire must fail the limit.
-17. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
+18. ``mlfabric_ranks``: the same step on a 2-pod x 2-data world of four
    gloo processes sharing the card, reduced model, against the auto step;
    then the three tiers on that world.
-18. ``reduced_family_parity``: the reduced qwen2-7b, phi-3-vision (with
+19. ``reduced_family_parity``: the reduced qwen2-7b, phi-3-vision (with
    patch embeddings), granite-moe, deepseek-v2 (MLA), jamba (mamba and
    attention, experts on odd layers), rwkv6 and whisper (bf16 stub
    frames) in f32, card against CPU: loss, aux loss, the "pallas"
    prefill's logits and every cache entry and 4 decode steps; the flash
    launches of the reference's dispatch rule (``flash_launches``).
-19. ``scenario``: cell A's MLfabric-A under
+20. ``scenario``: cell A's MLfabric-A under
    ``scenarios.paper_dynamic_cluster(4, horizon=12)`` (a leave, an
    aggregator outage, a congestion wave, a join) with a ``PhaseProfiler``:
    commits in each window, the leaver's late commits, conservation of
    updates, launches per update, the profiler's roofline bytes beside
    ``dequant_aggregate``'s time.
-20. ``moe_train``: MLfabric-A on the full-width granite-moe-1b-a400m
+21. ``moe_train``: MLfabric-A on the full-width granite-moe-1b-a400m
    (1.33 B parameters, an f32 router), 8 commits: the int8 wire on the
    whole flat update, finite losses, aux losses above zero.
-21. ``moe_serve``: granite's 32k prefill at batch 1 under "pallas" (24
+22. ``moe_serve``: granite's 32k prefill at batch 1 under "pallas" (24
    flash launches a prefill) against "blockwise" with the routing held
    (``RouteHold``), 8 decode steps from it, and prefill against decode at
    a drop-free capacity with the decode's routing held.
-22. ``vlm_serve``: phi-3-vision's 4096-position prefill (256 stub patch
+23. ``vlm_serve``: phi-3-vision's 4096-position prefill (256 stub patch
    embeddings and 3,840 tokens; flash at D 96, 32 launches) against
    "blockwise", 8 decode steps from it.
-23. ``qwen2_7b_serve``: cell D's serve phase on qwen2-7b (28 flash launches
+24. ``qwen2_7b_serve``: cell D's serve phase on qwen2-7b (28 flash launches
    at D 128 a prefill; decode at pos 32767 at batch 16 on a 30.1 GB cache).
-24. ``deepseek_serve`` (cell M): deepseek-v2-236b at its published widths
+25. ``deepseek_serve`` (cell M): deepseek-v2-236b at its published widths
    (MLA ranks 1536/512 with rope 64, 160 routed and 2 shared experts, top
    6), 4 of 60 layers: a 4,096-token prefill (the blockwise loop, no
    kernel: bit-equal to "blockwise"), ``decode_32k`` at batch 128 on a
    19.3 GB latent cache, prefill against decode (bf16; f32 on one layer).
-25. ``jamba_serve`` (cell N): jamba-v0.1-52b, one block of 8 layers (7
+26. ``jamba_serve`` (cell N): jamba-v0.1-52b, one block of 8 layers (7
    mamba, 1 attention, experts on the 4 odd ones): the 32k prefill (one
    flash launch at D 128, 32/8 heads) against "blockwise" with the
    routing held, ``long_500k`` decode at pos 524287, prefill against
    decode with the recurrent states as the cache.
-26. ``rwkv_serve`` (cell O): rwkv6-1.6b whole (24 layers): the 32k
+27. ``rwkv_serve`` (cell O): rwkv6-1.6b whole (24 layers): the 32k
    prefill (no kernel: bit-equal), ``long_500k`` decode beside a step at
    pos 0, the serve loop, prefill against decode.
-27. ``whisper_serve`` (cell Q): whisper-tiny at its published widths (4 +
+28. ``whisper_serve`` (cell Q): whisper-tiny at its published widths (4 +
    4 layers, d 384, 6/6 heads of 64, 1,500 stub frames): ``prefill_32k``
    at its own batch of 32 beside seeded bf16 frames (4 flash launches a
    prefill, the decoder's; the encoder and the cross-attention take the
@@ -151,9 +162,9 @@ toolkit.  Every line it prints is one JSON object:
    prefill a batch under "pallas"), prefill against decode in bf16 and
    f32, and part ``train``: MLfabric-A with cell A's trainer, frames
    seeded by worker and step, the encoder's weights moving.
-28. ``rwkv_train`` (cell P): MLfabric-A on the whole rwkv6-1.6b (1.23 B
+29. ``rwkv_train`` (cell P): MLfabric-A on the whole rwkv6-1.6b (1.23 B
    parameters), 8 commits: the backward through the WKV chunks.
-29. ``sharded`` (cell R): the full-width Qwen2-0.5B tensor-parallel on a
+30. ``sharded`` (cell R): the full-width Qwen2-0.5B tensor-parallel on a
    ``(pod=1, data=2, model=2)`` world of four gloo processes sharing the
    card (DTensor's collectives staged through the host): the auto,
    mlfabric and compressed steps at seq 4096 x batch 2, the 32k prefill
@@ -161,7 +172,7 @@ toolkit.  Every line it prints is one JSON object:
    and 2 decode steps at batch 16, each against the unsharded step on
    the card; then the reduced model in f32, card against CPU; per-rank
    peaks beside the predicted per-rank param bytes.
-30. ``sharded_families`` (cell S): on a world of four gloo processes
+31. ``sharded_families`` (cell S): on a world of four gloo processes
    sharing the card, first the reduced granite-moe, deepseek-v2, jamba
    (one group, "mamm"), rwkv6 and whisper in f32, card against CPU
    within 1e-4: the auto and MLfabric steps on ``(pod=1, data=2,
@@ -174,7 +185,23 @@ toolkit.  Every line it prints is one JSON object:
    decode steps at batch 16 on a latent cache split over ``model``; S3,
    rwkv6 whole, the auto step on ``(1, 1, 4)``; params held beside
    ``param_bytes_per_rank``, per-rank peaks, seconds per step.
-31. The ``{"kernels": [...]}`` summary (seven kernels), then
+32. ``deepseek_train`` (cell T): one deepseek-v2 layer at its published
+   widths (5.02 B parameters with the embedding and head, bf16, seeded)
+   trained through the donating call (``StepBundle.donating()``, the
+   in-place eq.-2 update) at ``train_4k``'s seq 4096 x batch 2 on a
+   ``(pod=1, data=1)`` mesh: the auto step, then the compressed MLfabric
+   step (``quantize`` and ``dequant_aggregate`` once a bucket over a
+   5.02 G-float flat gradient); each step must be predicted by the
+   dry-run at or below ``DS_FIT_BYTES`` before it runs (else its peak
+   and what holds it are printed and the run fails); 1 warm-up and 1
+   timed step each.  Finite losses, every param
+   and history leaf kept in place and moved (a seeded sample of 2^20
+   entries a leaf), the peak below 80 GB and within ``PEAK_PRED_TOL`` of
+   the prediction, the in-place update bit-equal to
+   ``momentum_sgd_update`` on every full-width leaf, and the reduced
+   deepseek-v2's donated auto and MLfabric steps card against CPU within
+   1e-4.
+33. The ``{"kernels": [...]}`` summary (seven kernels), then
    ``{"ok": true, ...}`` last.
 
 Any failed check raises, so the script exits non-zero.  It imports nothing
@@ -1166,13 +1193,14 @@ def phase_reduced_step_parity():
               "max_abs_param_diff": worst})
 
 
-def phase_mlfabric_step():
+def phase_mlfabric_step(pred: dict):
     """The in-graph MLfabric step on the full-width Qwen2-0.5B in bf16 at
     train_4k's seq 4096 with global batch 2 (not 256: one card's memory
     and this script's time), ``(pod=1, data=1)`` mesh, remat, 4 MiB
     buckets.  Three configurations of 1 warm-up and ``STEP_TIMED`` timed
     steps each; then one "auto" step from the same params against the
-    first mlfabric step."""
+    first mlfabric step.  The plain configuration's first step's peak is
+    held against ``pred``, the dry-run's."""
     import torch
     from repro_torch.configs import get_config, get_shape
     from repro_torch.data import SyntheticLM
@@ -1208,6 +1236,7 @@ def phase_mlfabric_step():
         losses, secs = [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        at_start = torch.cuda.memory_allocated(dev)
         zero_launches()
         for i, b in enumerate(batches):
             t0 = time.perf_counter()
@@ -1215,6 +1244,8 @@ def phase_mlfabric_step():
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+            if i == 0:
+                first_peak = torch.cuda.max_memory_allocated(dev)
             if first is None:
                 first = (p, losses[0])
         launched = ops_launches()
@@ -1230,6 +1261,9 @@ def phase_mlfabric_step():
             want["grad_aggregate"] = n_buckets * steps
         timed = secs[1:]
         s_step = sum(timed) / len(timed)
+        against = (peak_against_prediction(f"mlfabric_step {name}",
+                                           first_peak, at_start, pred)
+                   if name == "mlfabric" else {})
         emit({"phase": "mlfabric_step", "config": name, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "dtype": "bfloat16", "seq_len": shape.seq_len,
@@ -1238,7 +1272,8 @@ def phase_mlfabric_step():
               "launches": launched, "warmup_s": secs[0], "step_s": timed,
               "s_per_step": s_step,
               "tokens_per_s": STEP_BATCH * shape.seq_len / s_step,
-              "max_memory_allocated": peak})
+              "max_memory_allocated": peak,
+              **{f"first_step_{k}": v for k, v in against.items()}})
         check(all(math.isfinite(l) for l in losses),
               f"mlfabric_step {name}: non-finite loss {losses}")
         check(launched == want, f"mlfabric_step {name}: launched {launched},"
@@ -5086,6 +5121,364 @@ def phase_reduced_family_parity() -> None:
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+# slice 12: the dry-run (cell U) and deepseek-v2's one-layer training
+# through the donating call (cell T)
+# --------------------------------------------------------------------------- #
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k")     # cell U, on 16x16
+DRYRUN_TIMEOUT_S = 400
+DS_ARCH, DS_LAYERS = "deepseek-v2-236b", 1   # cell T: cell S2's part
+DS_BATCH = 2                     # train_4k's global batch 256, cut to 2
+DS_FIT_BYTES = 76e9              # each step must be predicted at or below
+CARD_BYTES = 80e9
+# the measured peak of a step against the dry-run's prediction (its
+# argument bytes swapped for all the process held at the step's start):
+# on an H100 80GB HBM3 at 700 W the peaks read up to +0.26% (cell B: 34
+# MB, about cuBLAS's workspace, which the trace does not see) and under
+# +0.01% (cell T); 2% is eight times the largest reading
+PEAK_PRED_TOL = 0.02
+DS_REDUCED_SEQ = 32
+DS_TRAIN_CUTS = [
+    "deepseek-v2-236b: 1 of 60 layers at its published widths (cell S2's "
+    "part; 5.02 B parameters with the embedding and head)",
+    "train_4k's seq 4,096 x global batch 256 cut to 4,096 x 2",
+    "1 warm-up and 1 timed step of each step",
+]
+
+
+def ds_train_setup():
+    from repro_torch.configs import get_config, get_shape
+    cfg = dataclasses.replace(get_config(DS_ARCH), n_layers=DS_LAYERS)
+    return cfg, dataclasses.replace(get_shape("train_4k"),
+                                    global_batch=DS_BATCH)
+
+
+DS_STEPS = {"auto": dict(grad_path="auto"),
+            "mlfabric": dict(grad_path="mlfabric", compress_inter=True)}
+
+
+def step_predictions(dev) -> dict:
+    """The dry-run's analysis (``launch/op_analysis.py`` on fake tensors on
+    the card) of cell T's two donated steps, of its auto step without
+    donation (the peak donation saves; not run), and of cell B's plain
+    ``mlfabric_step`` (its ``fn``), on this process's ``(pod=1, data=1)``
+    mesh, each printed."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.launch.dryrun import analyze_step
+
+    mesh = make_host_mesh(device=dev)
+    ds_cfg, ds_shape = ds_train_setup()
+    b_shape = dataclasses.replace(get_shape("train_4k"),
+                                  global_batch=STEP_BATCH)
+    cells = {f"deepseek_train/{k}": (ds_cfg, ds_shape, kw, True)
+             for k, kw in DS_STEPS.items()}
+    cells["deepseek_train/auto_functional"] = (ds_cfg, ds_shape,
+                                               DS_STEPS["auto"], False)
+    cells["mlfabric_step/mlfabric"] = (get_config(FULL_ARCH), b_shape,
+                                       dict(grad_path="mlfabric"), False)
+    out = {}
+    for name, (cfg, shape, kw, donate) in cells.items():
+        bundle = build_step(cfg, shape, mesh, lr=STEP_LR, gamma=STEP_GAMMA,
+                            remat=True, **kw)
+        r = analyze_step(bundle, cfg, shape, mesh, kw["grad_path"],
+                         donate=donate)
+        out[name] = r
+        emit({"phase": "dryrun", "prediction": name, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "seq_len": shape.seq_len,
+              "global_batch": shape.global_batch, "donated": donate,
+              "peak_bytes": r["peak_bytes"],
+              "argument_bytes": r["argument_bytes"],
+              "peak_holders": r["peak_holders"], "flops": r["flops"],
+              "bytes": r["bytes"], "launches": r["launches"],
+              "trace_s": r["trace_s"]})
+    return out
+
+
+def start_dryrun() -> tuple:
+    """Cell U, started: the dry-run CLI on one production cell in a
+    subprocess (this card's torch, on the host's CPU while the parity
+    phases run, which report no time); returns the running cell for
+    ``finish_dryrun``.  The subprocess is killed at exit if the script
+    stops before it ends."""
+    import atexit
+    import tempfile
+
+    arch, shape = DRYRUN_CELL
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out_dir], cwd=str(root), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_dir, t0
+
+
+def finish_dryrun(cell: tuple) -> None:
+    """Cell U's result: read, printed and checked."""
+    import shutil
+    import torch
+
+    proc, out_dir, t0 = cell
+    arch, shape = DRYRUN_CELL
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"dryrun {arch} {shape}: exit {proc.returncode}: {stderr[-2000:]}")
+    with open(os.path.join(out_dir, f"{arch}__{shape}__16-16.json")) as f:
+        res = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "dryrun", "cell": "U", "arch": arch, "shape": shape,
+          "torch": torch.__version__, "line": stdout.strip().splitlines()[-1],
+          **{k: res[k] for k in (
+              "mesh", "n_devices", "status", "trace_s", "trace_device",
+              "flops_per_device", "bytes_per_device",
+              "collective_bytes_per_device", "collective_by_kind",
+              "memory", "t_compute", "t_memory", "t_collective",
+              "bottleneck")},
+          "wall_s_to_finish": wall})
+    check(res["status"] == "ok" and res["n_devices"] == 256,
+          f"dryrun {arch} {shape}: {res['status']}")
+    check(res["trace_device"].startswith("cuda"),
+          f"dryrun traced on {res['trace_device']}, not the card")
+    check(res["flops_per_device"] > 0 and res["memory"]["peak_bytes"] > 0
+          and res["collective_bytes_per_device"] > 0,
+          f"dryrun {arch} {shape}: empty counts")
+
+
+def peak_against_prediction(what: str, peak: int, at_start: int,
+                            pred: dict) -> dict:
+    """The prediction with its argument bytes swapped for all the process
+    held when the step started, and the measured peak's error against
+    it; checked within ``PEAK_PRED_TOL`` and below the card."""
+    want = pred["peak_bytes"] - pred["argument_bytes"] + at_start
+    err = (peak - want) / want
+    check(peak < CARD_BYTES, f"{what}: peak {peak} bytes")
+    check(abs(err) <= PEAK_PRED_TOL,
+          f"{what}: peak {peak} against the dry-run's {want} "
+          f"({err:+.3f}, limit {PEAK_PRED_TOL})")
+    return {"max_memory_allocated": peak, "allocated_at_start": at_start,
+            "predicted_peak": want, "peak_vs_prediction": err}
+
+
+def _samples(tree) -> list:
+    """Each leaf's seeded sample (``leaf_sample``) on the host."""
+    from repro_torch.tree import tree_leaves
+    return [t.reshape(-1)[leaf_sample(i, tuple(t.shape)).to(t.device)]
+            .float().cpu() for i, t in enumerate(tree_leaves(tree))]
+
+
+def inplace_bits(params, history, dev) -> dict:
+    """``momentum_sgd_update_`` against ``momentum_sgd_update`` on every
+    full-width leaf, one leaf at a time (copies of the leaf and its
+    history, a seeded bf16 gradient): equal bit for bit."""
+    import torch
+    from repro_torch.optim import (MomentumState, momentum_sgd_update,
+                                   momentum_sgd_update_)
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(7)
+    equal, n = True, 0
+    for p, h in zip(tree_leaves(params), tree_leaves(history)):
+        g = torch.randn(p.shape, generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        want_p, want_s = momentum_sgd_update(
+            {"x": p}, {"x": g}, MomentumState({"x": h}), lr=STEP_LR,
+            gamma=STEP_GAMMA)
+        pc, hc = p.clone(), h.clone()
+        momentum_sgd_update_({"x": pc}, {"x": g}, MomentumState({"x": hc}),
+                             lr=STEP_LR, gamma=STEP_GAMMA)
+        equal &= bool(torch.equal(pc, want_p["x"])
+                      and torch.equal(hc, want_s.history["x"]))
+        n += p.numel()
+        del g, want_p, want_s, pc, hc
+    return {"leaves_equal": equal, "elements": n}
+
+
+def _reduced_ds_donated(device: str, init_np) -> dict:
+    """The reduced deepseek-v2 in f32: one donated auto step and one
+    donated MLfabric step (uncompressed: card and CPU may round an f32
+    gradient to different int8 steps) from the same params and batch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.interop import to_torch
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(DS_ARCH).reduced()
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                seq_len=DS_REDUCED_SEQ, global_batch=2)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, DS_REDUCED_SEQ)).astype(np.int32)).to(device)
+        for k in ("tokens", "labels")}
+    mesh = make_host_mesh(device=device)
+    out = {}
+    for name, kw in (("auto", {}), ("mlfabric", {"grad_path": "mlfabric"})):
+        params = to_torch(init_np, dtype=torch.float32, device=device)
+        opt = momentum_sgd_init(params)
+        step = build_step(cfg, shape, mesh, lr=REDUCED_STEP_LR, **kw)
+        p, o, m = step.donating()(params, opt, batch)
+        out[name] = {"loss": float(m["loss"]),
+                     "aux_loss": float(m["aux_loss"]),
+                     "leaves": [t.cpu() for t in tree_leaves((p, o))]}
+    return out
+
+
+def phase_deepseek_train(preds: dict) -> dict:
+    """Cell T (see the module docstring); returns its launches."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.collectives import plan_reduce
+    from repro_torch.interop import to_numpy
+    from repro_torch.launch import build_step, make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import momentum_sgd_init
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg, shape = ds_train_setup()
+    t0 = time.perf_counter()
+    params = build_model(cfg, dtype=torch.bfloat16, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    opt = momentum_sgd_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mesh = make_host_mesh(device=dev)
+    src = SyntheticLM(cfg.vocab_size, shape.seq_len, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in src.batch(i, DS_BATCH).items()}
+               for i in range(2)]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_buckets = len(plan_reduce(params, bucket_bytes=4 * 2 ** 20).buckets)
+    ptrs = [t.data_ptr() for t in tree_leaves((params, opt))]
+    emit({"phase": "deepseek_train", "part": "setup", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params)),
+          "seq_len": shape.seq_len, "global_batch": DS_BATCH,
+          "mesh": mesh.shape, "buckets": n_buckets, "init_s": init_s,
+          "predicted_peak_functional":
+              preds["deepseek_train/auto_functional"]["peak_bytes"],
+          "reduced": DS_TRAIN_CUTS})
+    totals = dict.fromkeys(KERNELS, 0)
+    for name, kw in DS_STEPS.items():
+        pred = preds[f"deepseek_train/{name}"]
+        fits = pred["peak_bytes"] <= DS_FIT_BYTES
+        if not fits:
+            # the dry-run's peak and what holds it, line by line
+            for op, nbytes in pred["peak_holders"].items():
+                emit({"phase": "deepseek_train", "step": name,
+                      "not_run": "predicted peak above DS_FIT_BYTES",
+                      "predicted_peak": pred["peak_bytes"],
+                      "held_by": op, "bytes": nbytes})
+        check(fits, f"deepseek_train {name}: predicted peak "
+                    f"{pred['peak_bytes']} above DS_FIT_BYTES")
+        step = build_step(cfg, shape, mesh, lr=STEP_LR, gamma=STEP_GAMMA,
+                          remat=True, **kw).donating()
+        h_before = _samples(opt.history)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        at_start = torch.cuda.memory_allocated(dev)
+        zero_launches()
+        losses, secs, peaks = [], [], []
+        for b in batches:
+            p_before = _samples(params)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+        launched = ops_launches()
+        for k in totals:
+            totals[k] += launched[k]
+        kept = [t.data_ptr() for t in tree_leaves((params, opt))] == ptrs
+        # every history leaf moves, and every param leaf took its last
+        # update in place: p = (p_before + h) in f32, rounded to its dtype
+        # (a bf16 norm scale near 1 may round back to itself)
+        h_after = _samples(opt.history)
+        moved = [bool(torch.any(a != b_)) for a, b_ in zip(h_after, h_before)]
+        applied = [torch.equal(pa, (pb + h).to(t.dtype).float())
+                   for pa, pb, h, t in zip(_samples(params), p_before,
+                                           h_after, tree_leaves(params))]
+        p_moved = sum(bool(torch.any(pa != pb)) for pa, pb in zip(
+            _samples(params), p_before))
+        want = dict.fromkeys(KERNELS, 0)
+        if kw.get("compress_inter"):
+            want.update(quantize=n_buckets * len(batches),
+                        dequant_aggregate=n_buckets * len(batches))
+        peak = peak_against_prediction(f"deepseek_train {name}", peaks[0],
+                                       at_start, pred)
+        emit({"phase": "deepseek_train", "step": name, "donated": True,
+              "losses": losses, "warmup_s": secs[0], "step_s": secs[1:],
+              "s_per_step": secs[-1],
+              "tokens_per_s": DS_BATCH * shape.seq_len / secs[-1],
+              "launches": launched, "storage_kept": kept,
+              "history_leaves_moved": sum(moved), "leaves": len(moved),
+              "param_leaves_moved_last_step": p_moved,
+              "updates_applied": sum(applied),
+              "max_memory_allocated_both": max(peaks), **peak})
+        check(all(math.isfinite(l) for l in losses),
+              f"deepseek_train {name}: non-finite loss {losses}")
+        check(kept, f"deepseek_train {name}: a donated leaf moved storage")
+        check(all(moved), f"deepseek_train {name}: "
+                          f"{moved.count(False)} history leaves did not move")
+        check(all(applied), f"deepseek_train {name}: {applied.count(False)}"
+                            " param leaves did not take their update")
+        check(launched == want,
+              f"deepseek_train {name}: launched {launched}, want {want}")
+        check(max(peaks) < CARD_BYTES,
+              f"deepseek_train {name}: peak {max(peaks)}")
+        del step, m
+    bits = inplace_bits(params, opt.history, dev)
+    emit({"phase": "deepseek_train", "part": "inplace_bits", **bits})
+    check(bits["leaves_equal"], "the in-place update differs from "
+                                "momentum_sgd_update at full width")
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the reduced model, card against CPU (phase_reduced_family_parity's
+    # rule)
+    from repro_torch.configs import get_config
+    init = to_numpy(build_model(get_config(DS_ARCH).reduced(),
+                                dtype=torch.float32, device="cpu")
+                    .init(torch.Generator().manual_seed(0)))
+    card = _reduced_ds_donated("cuda", init)
+    cpu = _reduced_ds_donated("cpu", init)
+    for name in card:
+        errs = {k: abs(card[name][k] - cpu[name][k])
+                for k in ("loss", "aux_loss")}
+        errs["leaves"] = max(float((a - b).abs().max()) for a, b in zip(
+            card[name]["leaves"], cpu[name]["leaves"]))
+        emit({"phase": "deepseek_train", "part": "reduced", "step": name,
+              "loss_card": card[name]["loss"], "max_abs_err": errs})
+        for k in ("loss", "aux_loss"):
+            check(errs[k] <= 1e-4 * abs(cpu[name][k]) + 1e-6,
+                  f"reduced deepseek {name} {k}: card {card[name][k]} vs "
+                  f"CPU {cpu[name][k]}")
+        for a, b in zip(card[name]["leaves"], cpu[name]["leaves"]):
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"reduced deepseek {name}: card and CPU differ by "
+                  f"{errs['leaves']}")
+    emit({"phase": "deepseek_train", "part": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5105,16 +5498,19 @@ def main() -> int:
     launches = phase_main_path()
     phase_reduced_step_parity()
     phase_reduced_tier_parity()
-    step_launches = phase_mlfabric_step()
+    preds = step_predictions(torch.device("cuda", 0))
+    step_launches = phase_mlfabric_step(preds["mlfabric_step/mlfabric"])
     tier_launches_ = phase_tiers()
     phase_reduced_serve_parity()
     serve_launches = phase_serve()
     train_launches = phase_train()
     pod_launches = phase_pod_async()
     elastic_launches = phase_elastic()
+    dryrun_cell = start_dryrun()
     phase_reduced_ps_parity()
     phase_mlfabric_ranks()
     phase_reduced_family_parity()
+    finish_dryrun(dryrun_cell)
     scenario_launches = phase_scenario(rows)
     moe_train_launches = phase_moe_train()
     moe_serve_launches = phase_moe_serve()
@@ -5126,6 +5522,7 @@ def main() -> int:
     family_launches["rwkv_train"] = phase_rwkv_train()
     family_launches["sharded"] = phase_sharded()
     family_launches["sharded_families"] = phase_sharded_families()
+    family_launches["deepseek_train"] = phase_deepseek_train(preds)
     import torch.distributed as dist
     dist.destroy_process_group()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

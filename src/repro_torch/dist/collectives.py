@@ -67,7 +67,7 @@ Params = Any
 DropMask = Optional[Union[Callable[[int], Any], Any]]
 
 __all__ = ["loss_drop_mask", "mlfabric_grad_reduce", "plan_reduce",
-           "reduce_flat_buckets", "unpack_reduced"]
+           "reduce_flat_buckets", "reduce_packed", "unpack_reduced"]
 
 BACKENDS = ("host", "switch", "hierarchical")
 
@@ -192,15 +192,31 @@ def plan_reduce(tree: Params, *, bucket_bytes: int,
                             shortest_first=shortest_first)
 
 
-def reduce_flat_buckets(grads: Params, layout: FlatLayout, *, mesh,
-                        intra_axis: str, inter_axis: Optional[str],
-                        compress_inter: bool, mean_over: int,
-                        keep_inter: Optional[float] = None,
-                        backend: str = "host",
-                        drop_mask_inter: DropMask = None,
-                        tracer: Any = None) -> List[torch.Tensor]:
+def reduce_flat_buckets(grads: Params, layout: FlatLayout,
+                        **kw) -> List[torch.Tensor]:
     """Pack ``grads`` flat and reduce every bucket over ``mesh`` in issue
-    order; returns the reduced bucket vectors in ``layout.buckets`` order.
+    order (:func:`reduce_packed`, which takes the same keywords).  No
+    result aliases ``grads``: where nothing would copy the one f32 leaf of
+    a tree, it is copied here."""
+    leaves = tree_leaves(grads)
+    flat = pack_leaves(leaves)                       # one cat
+    if len(leaves) == 1 and leaves[0].dtype == torch.float32:
+        flat = flat.clone()                          # else a view of it
+    return reduce_packed(flat, layout, **kw)
+
+
+def reduce_packed(flat: torch.Tensor, layout: FlatLayout, *, mesh,
+                  intra_axis: str, inter_axis: Optional[str],
+                  compress_inter: bool, mean_over: int,
+                  keep_inter: Optional[float] = None,
+                  backend: str = "host",
+                  drop_mask_inter: DropMask = None,
+                  tracer: Any = None) -> List[torch.Tensor]:
+    """Reduce every bucket of ``flat`` (a gradient tree packed by
+    ``flatbuf.pack_leaves``, whose tree the caller may then free) over
+    ``mesh`` in issue order; returns the reduced bucket vectors in
+    ``layout.buckets`` order.  With ``mean_over == 1`` and no stage that
+    copies (a host reduce over axes of one), they are views of ``flat``.
 
     Unlike the reference there is no chain token to thread: calling this
     once per gradient chunk keeps every collective in the planned order.
@@ -221,7 +237,6 @@ def reduce_flat_buckets(grads: Params, layout: FlatLayout, *, mesh,
         raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
     if backend == "hierarchical":
         compress_inter = True
-    flat = pack_leaves(tree_leaves(grads))           # one cat
     n_intra = mesh.shape[intra_axis]
     n_inter = mesh.shape[inter_axis] if inter_axis is not None else 1
     t0 = time.perf_counter()
@@ -256,7 +271,8 @@ def reduce_flat_buckets(grads: Params, layout: FlatLayout, *, mesh,
             else:
                 vec = _inter_pod_aggregate(vec, group, n_inter,
                                            compress=compress_inter)
-        reduced.append(vec / mean_over)
+        # dividing by one changes no bit: skip the bucket's copy
+        reduced.append(vec if mean_over == 1 else vec / mean_over)
         if tracer is not None:
             b = layout.buckets[k]
             tracer.span(f"bucket{k} ({len(b.indices)} leaves)", cat="bucket",

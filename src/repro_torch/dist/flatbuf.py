@@ -121,10 +121,18 @@ def plan_flat_layout(leaf_sizes: Sequence[int], bucket_bytes: int, *,
 # --------------------------------------------------------------------------- #
 def pack_leaves(leaves: Sequence[torch.Tensor],
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Every leaf, raveled and cast, in one flat buffer (one ``cat``)."""
+    """Every leaf, raveled and cast, in one flat buffer: each is cast as it
+    is copied into its place, so no cast copy of the whole tree is made
+    beside the buffer."""
     if len(leaves) == 1:
         return leaves[0].to(dtype).ravel()
-    return torch.cat([l.to(dtype).ravel() for l in leaves])
+    flat = torch.empty(sum(l.numel() for l in leaves), dtype=dtype,
+                       device=leaves[0].device)
+    start = 0
+    for l in leaves:
+        flat[start:start + l.numel()].view(l.shape).copy_(l)
+        start += l.numel()
+    return flat
 
 
 def bucket_slice(flat: torch.Tensor, layout: FlatLayout, k: int

@@ -54,7 +54,7 @@ class MeshShape:
 def mesh_view(device_mesh) -> MeshShape:
     """A ``DeviceMesh``'s named shape."""
     names = tuple(device_mesh.mesh_dim_names)
-    return MeshShape(names, dict(zip(names, device_mesh.mesh.shape)))
+    return MeshShape(names, dict(zip(names, device_mesh.shape)))
 
 
 # --------------------------------------------------------------------------- #

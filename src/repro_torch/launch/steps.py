@@ -33,7 +33,7 @@ import functools
 import math
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,15 +41,17 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeConfig
 from ..dist import sharding as shd
-from ..dist.collectives import (plan_reduce, reduce_flat_buckets,
-                                unpack_reduced)
+from ..dist.collectives import plan_reduce, reduce_packed, unpack_reduced
+from ..dist.flatbuf import pack_leaves
 from ..dist.policy import P, sharding_policy
 from ..dist.sharding import data_axes
 from ..models import transformer as tf
+from ..models import api as model_api
 from ..models.api import value_and_grad
 from ..models.layers import is_dtensor
 from ..models.moe import global_batch_stats
-from ..optim.sgd import MomentumState, momentum_sgd_update
+from ..optim.sgd import (MomentumState, momentum_sgd_init,
+                         momentum_sgd_update, momentum_sgd_update_)
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .mesh import Mesh
 
@@ -59,13 +61,47 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclass
 class StepBundle:
-    """A step and the mesh it runs on.  The reference's bundle also carries
-    abstract args, shardings and donation for ``jax.jit``; eager PyTorch
-    has none of these, so ``fn(params, opt_state, batch) -> (params,
-    opt_state, metrics)`` is called as it is."""
+    """A step, the mesh it runs on, its abstract args and its donation.
+
+    ``fn`` is the functional step (``fn(params, opt_state, batch) ->
+    (params, opt_state, metrics)`` for training): it leaves its inputs as
+    they are.  ``args`` are the reference's abstract args as ``meta``
+    tensors of the global shapes (``models.api.params_specs``, the
+    optimizer's init on them, ``input_specs``); the dry-run lays them out
+    on the mesh.  ``donate_argnums`` are the reference's: params and
+    history in training, the cache in decode.  :meth:`donating` is the
+    counterpart of the reference's ``jitted()``: a call that honours the
+    donation, updating the donated params and history in place
+    (``optim.sgd.momentum_sgd_update_``, bit-equal to ``fn``) and
+    returning them, the same tensors; the caller reads nothing of their
+    old values after it.  Decode writes its cache in place in both; the
+    reference's shardings have no counterpart here (DTensor leaves carry
+    their own)."""
 
     fn: Callable
     mesh: Mesh
+    args: Tuple = ()
+    donate_argnums: Tuple[int, ...] = ()
+    donating_fn: Optional[Callable] = None
+
+    def donating(self) -> Callable:
+        """The step with its donation honoured (``fn`` where it has none
+        or where ``fn`` already writes in place)."""
+        return self.donating_fn if self.donating_fn is not None else self.fn
+
+
+def _train_bundle(step: Callable, mesh: Mesh, cfg: ModelConfig,
+                  shape: ShapeConfig) -> StepBundle:
+    """A training bundle of ``step(params, opt_state, batch, *, update)``:
+    ``fn`` with the functional update (its default), the donating call
+    with the in-place one."""
+    params = model_api.params_specs(cfg)
+    return StepBundle(
+        fn=step, mesh=mesh,
+        args=(params, momentum_sgd_init(params),
+              model_api.input_specs(cfg, shape)),
+        donate_argnums=(0, 1),
+        donating_fn=functools.partial(step, update=momentum_sgd_update_))
 
 
 def _local_batch(batch: Batch, mesh: Mesh, axes) -> Batch:
@@ -131,7 +167,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into {microbatches} microbatches on {world} ranks")
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, update=momentum_sgd_update):
         if microbatches == 1:
             with global_batch_stats(world):
                 metrics, grads = _metrics_and_grads(
@@ -158,8 +194,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                     g.div_(world)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                for g in tree_leaves(grads)))
-        new_params, new_opt = momentum_sgd_update(params, grads, opt_state,
-                                                  lr=lr, gamma=gamma)
+        new_params, new_opt = update(params, grads, opt_state, lr=lr,
+                                     gamma=gamma)
         loss = metrics["loss"]
         if world > 1:
             loss = _mean_over(loss, mesh, axes)
@@ -167,7 +203,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                                      "aux_loss": metrics["aux_loss"],
                                      "grad_norm": gnorm}
 
-    return StepBundle(fn=train_step, mesh=mesh)
+    return _train_bundle(train_step, mesh, cfg, shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -209,7 +245,7 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
     reduce_kw = dict(mesh=mesh, intra_axis="data", inter_axis=inter,
                      compress_inter=compress_inter, mean_over=n_data_shards)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, update=momentum_sgd_update):
         local = _local_batch(batch, mesh, axes)
         layout = plan_reduce(params, bucket_bytes=bucket_bytes,
                              shortest_first=shortest_first)
@@ -218,8 +254,10 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
         for chunk in _split(local, overlap_chunks):
             m, g = _metrics_and_grads(params, chunk, cfg, remat)
             with torch.no_grad():
-                vecs = reduce_flat_buckets(g, layout, **reduce_kw)
+                flat = pack_leaves(tree_leaves(g))   # the tree goes now
                 del g
+                vecs = reduce_packed(flat, layout, **reduce_kw)
+                del flat
                 reduced = vecs if reduced is None else \
                     [r + v for r, v in zip(reduced, vecs)]
             loss, aux = loss + m["loss"], aux + m["aux_loss"]
@@ -228,15 +266,15 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
             loss, aux = loss / overlap_chunks, aux / overlap_chunks
         grads = unpack_reduced(reduced, layout, params)
         del reduced
-        new_params, new_opt = momentum_sgd_update(params, grads, opt_state,
-                                                  lr=lr, gamma=gamma)
+        new_params, new_opt = update(params, grads, opt_state, lr=lr,
+                                     gamma=gamma)
         loss = _mean_over(loss, mesh, ("data",) + ((inter,) if inter else ()))
         return new_params, new_opt, {
             "loss": loss, "aux_loss": aux,
             "grad_norm": torch.zeros((), dtype=torch.float32,
                                      device=mesh.device)}
 
-    return StepBundle(fn=train_step, mesh=mesh)
+    return _train_bundle(train_step, mesh, cfg, shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -253,25 +291,41 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
     def prefill_step(params, batch):
         return tf.prefill(params, _local_batch(batch, mesh, axes), cfg=cfg)
 
-    return StepBundle(fn=prefill_step, mesh=mesh)
+    return _serve_bundle(prefill_step, mesh, cfg, shape)
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
-                      mesh: Mesh) -> StepBundle:
+                      mesh: Mesh, *, kv_int8: bool = False) -> StepBundle:
     """``fn(params, cache, tokens, pos) -> (logits, cache)``: one token for
     this rank's slice of ``tokens`` ([global batch, 1]) against this rank's
     cache (``init_cache`` of the local batch, bf16-typed or int8), written
-    in place at ``pos``.  The reference's ``kv_int8`` flag only shapes the
-    abstract cache it compiles for; here the cache passed in decides."""
+    in place at ``pos``.  As in the reference, ``kv_int8`` only shapes the
+    abstract cache of ``args``; the cache passed in decides the step."""
     if mesh.device_mesh is not None:
-        return _sharded_decode_step(cfg, shape, mesh)
+        return _sharded_decode_step(cfg, shape, mesh, kv_int8=kv_int8)
     axes = data_axes(mesh)
 
     def serve_step(params, cache, tokens, pos):
         local = _local_batch({"tokens": tokens}, mesh, axes)["tokens"]
         return tf.decode_step(params, cache, local, pos, cfg=cfg)
 
-    return StepBundle(fn=serve_step, mesh=mesh)
+    return _serve_bundle(serve_step, mesh, cfg, shape, kv_int8=kv_int8)
+
+
+def _serve_bundle(step: Callable, mesh: Mesh, cfg: ModelConfig,
+                  shape: ShapeConfig, *, kv_int8: bool = False
+                  ) -> StepBundle:
+    """A prefill bundle (args: params, batch) or a decode bundle (args:
+    params, cache, tokens, pos; the cache donated, as the step writes it
+    in place)."""
+    params = model_api.params_specs(cfg)
+    specs = model_api.input_specs(cfg, shape, kv_int8=kv_int8)
+    if shape.kind == "prefill":
+        return StepBundle(fn=step, mesh=mesh, args=(params, specs))
+    return StepBundle(fn=step, mesh=mesh,
+                      args=(params, specs["cache"], specs["tokens"],
+                            specs["pos"]),
+                      donate_argnums=(1,))
 
 
 # --------------------------------------------------------------------------- #
@@ -318,7 +372,7 @@ def _sharded_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                          f"into {microbatches} microbatches")
     act = shd.activation_policy(cfg, mesh, shape.global_batch)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, update=momentum_sgd_update):
         _check_batch(batch, shape)
         grads, loss, aux = None, 0.0, 0.0
         for mb in _split(batch, microbatches):
@@ -340,12 +394,12 @@ def _sharded_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         gnorm = _whole(torch.sqrt(sum(
             torch.sum(torch.square(g.to(torch.float32))) for g in grads)))
         grads = tree_unflatten(tree_flatten(params)[1], grads)
-        new_params, new_opt = momentum_sgd_update(params, grads, opt_state,
-                                                  lr=lr, gamma=gamma)
+        new_params, new_opt = update(params, grads, opt_state, lr=lr,
+                                     gamma=gamma)
         return new_params, new_opt, {"loss": loss, "aux_loss": aux,
                                      "grad_norm": gnorm}
 
-    return StepBundle(fn=train_step, mesh=mesh)
+    return _train_bundle(train_step, mesh, cfg, shape)
 
 
 def _sharded_mlfabric_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
@@ -390,7 +444,7 @@ def _sharded_mlfabric_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
         return DTensor.from_local(t.to_local(), sub, [t.placements[model_dim]],
                                   run_check=False)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, update=momentum_sgd_update):
         local = _local_batch(batch, mesh, axes)
         p_sub = tree_map(on_model, params)
         sub_leaves = tree_leaves(p_sub)
@@ -410,10 +464,10 @@ def _sharded_mlfabric_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                      for gl, s in zip(tree_leaves(g), sub_leaves)]
                 g = [gl.full_tensor() if compress_inter else gl.to_local()
                      for gl in g]
-                vecs = reduce_flat_buckets(
-                    tree_unflatten(tree_flatten(params)[1], g), layout,
-                    **reduce_kw)
+                flat = pack_leaves(g)                # the tree goes now
                 del g
+                vecs = reduce_packed(flat, layout, **reduce_kw)
+                del flat
                 reduced = vecs if reduced is None else \
                     [r + v for r, v in zip(reduced, vecs)]
             loss = loss + _whole(m["loss"])
@@ -428,21 +482,21 @@ def _sharded_mlfabric_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                 mesh, s, tuple(g.shape), mesh.coords)], grads,
                 tree_map(shd.strip_data, shd.param_shardings(cfg, mesh,
                                                              params)))
+        loss = _mean_over(loss, mesh, ("data",) + ((inter,) if inter else ()))
+        metrics = {"loss": loss, "aux_loss": aux,
+                   "grad_norm": torch.zeros((), dtype=torch.float32,
+                                            device=mesh.device)}
         local_p = tree_map(lambda t: t.to_local(), params)
         local_h = tree_map(lambda t: t.to_local(), opt_state.history)
-        new_p, new_opt = momentum_sgd_update(
-            local_p, grads, MomentumState(history=local_h), lr=lr,
-            gamma=gamma)
+        new_p, new_opt = update(local_p, grads, MomentumState(history=local_h),
+                                lr=lr, gamma=gamma)
         rewrap = functools.partial(_like, mesh)
-        loss = _mean_over(loss, mesh, ("data",) + ((inter,) if inter else ()))
         return (tree_map(rewrap, new_p, params),
                 MomentumState(history=tree_map(rewrap, new_opt.history,
                                                opt_state.history)),
-                {"loss": loss, "aux_loss": aux,
-                 "grad_norm": torch.zeros((), dtype=torch.float32,
-                                          device=mesh.device)})
+                metrics)
 
-    return StepBundle(fn=train_step, mesh=mesh)
+    return _train_bundle(train_step, mesh, cfg, shape)
 
 
 def _like(mesh: Mesh, local: torch.Tensor, ref) -> torch.Tensor:
@@ -468,7 +522,7 @@ def _sharded_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
             cfg, mesh, cache, shape.global_batch))
         return _logits_out(logits, mesh, shape), cache
 
-    return StepBundle(fn=prefill_step, mesh=mesh)
+    return _serve_bundle(prefill_step, mesh, cfg, shape)
 
 
 def _logits_out(logits, mesh: Mesh, shape: ShapeConfig):
@@ -480,7 +534,7 @@ def _logits_out(logits, mesh: Mesh, shape: ShapeConfig):
 
 
 def _sharded_decode_step(cfg: ModelConfig, shape: ShapeConfig,
-                         mesh: Mesh) -> StepBundle:
+                         mesh: Mesh, *, kv_int8: bool) -> StepBundle:
     """``fn(params, cache, tokens, pos) -> (logits, cache)``: one token for
     the global batch (``tokens`` [B, 1], plain) against a cache laid out by
     ``cache_shardings``, written in place at ``pos`` on the rank holding
@@ -495,7 +549,7 @@ def _sharded_decode_step(cfg: ModelConfig, shape: ShapeConfig,
             logits, cache = tf.decode_step(params, cache, tok, pos, cfg=cfg)
         return _logits_out(logits, mesh, shape), cache
 
-    return StepBundle(fn=serve_step, mesh=mesh)
+    return _serve_bundle(serve_step, mesh, cfg, shape, kv_int8=kv_int8)
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,

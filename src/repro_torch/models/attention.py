@@ -413,11 +413,34 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     if is_dtensor(t):
         from torch.distributed.tensor import Shard
         pieces = math.prod(size for size, pl in zip(
-            t.device_mesh.mesh.shape, t.placements)
+            t.device_mesh.shape, t.placements)
             if isinstance(pl, Shard) and pl.dim == t.ndim - 1)
         if n % pieces:
             t = whole_last_dim(t)
     return t.reshape(*t.shape[:-1], n, hd)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[..., n, hd] -> [..., n * hd], whose backward makes the gradient
+    whole along its last dim where a DTensor splits it into pieces that
+    hold no whole number of heads (14 heads over a ``model`` axis of 16),
+    as ``split_heads`` does forward: DTensor cannot unflatten such a
+    split."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.n = t.shape[-2]
+        return t.reshape(*t.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.n, g.shape[-1] // ctx.n)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[..., n, hd] -> [..., n * hd]."""
+    return _MergeHeads.apply(t) if is_dtensor(t) else t.reshape(
+        *t.shape[:-2], -1)
 
 
 def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -444,7 +467,7 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
     out = blockwise_attention(q, k, v, causal=causal, kv_block=kv_block)
-    return dense(out.reshape(b, s, -1), p["wo"]), {"k": k, "v": v}
+    return dense(merge_heads(out), p["wo"]), {"k": k, "v": v}
 
 
 def _rope_at(q, k, pos: int, cfg: ModelConfig):
@@ -632,8 +655,7 @@ def mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                               causal=True, kv_block=kv_block,
                               scale=_mla_scale(cfg))
-    return dense(out.reshape(b, s, -1), p["wo"]), {"ckv": ckv,
-                                                   "krope": krope}
+    return dense(merge_heads(out), p["wo"]), {"ckv": ckv, "krope": krope}
 
 
 def _f32_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

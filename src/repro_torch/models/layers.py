@@ -339,12 +339,55 @@ def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=()):
         run_check=False) for o, i in zip(fn(*local), out_like))
 
 
+def _gathered_over_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w`` made whole over every mesh dim that splits both ``x``'s rows
+    and ``w`` (an FSDP weight against a batch split over ``data``): the
+    all-gather of the weight that GSPMD issues for FSDP, whose gradient is
+    reduce-scattered on the way back.  Left to itself DTensor may gather
+    the rows instead where they are few (decode), and every rank then
+    multiplies the whole batch."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(w):
+        return w
+    rows = {i for i, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim < x.ndim - 1}
+    pls = [Replicate() if i in rows and isinstance(pl, Shard) else pl
+           for i, pl in enumerate(w.placements)]
+    return w if pls == list(w.placements) else w.redistribute(
+        w.device_mesh, pls)
+
+
+def _split_as_contraction(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x``, its partial sums reduced, split along its last dim over
+    every mesh dim that splits ``w``'s first (the contraction) and leaves
+    ``x`` whole (a local slice): each rank multiplies its block of the
+    contraction into a partial sum, as GSPMD partitions it.  Left to
+    itself DTensor may gather ``w`` whole instead where ``x`` has few
+    rows (decode)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(w):
+        return x
+    # a partial sum is summed first: GSPMD reduces it before the product
+    pls = [Replicate() if isinstance(xp, Partial) else xp
+           for xp in x.placements]
+    pls = [Shard(x.ndim - 1) if isinstance(wp, Shard) and wp.dim == 0
+           and isinstance(xp, Replicate) else xp
+           for xp, wp in zip(pls, w.placements)]
+    return x if pls == list(x.placements) else x.redistribute(
+        x.device_mesh, pls)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``.  On DTensors (a model axis) the rows of ``x`` and of the
-    gradient that comes back are made whole first (``whole_rows``)."""
+    gradient that comes back are made whole first (``whole_rows``), ``w``
+    is gathered over the mesh dims that split the batch
+    (``_gathered_over_rows``), and ``x`` is split as ``w``'s contraction
+    (``_split_as_contraction``)."""
     if not is_dtensor(x):
         return x @ w
-    return _WholeRowsGrad.apply(whole_rows(x) @ w)
+    x = whole_rows(x)
+    w = _gathered_over_rows(x, w)
+    return _WholeRowsGrad.apply(_split_as_contraction(x, w) @ w)
 
 
 def chunked_loss(h: torch.Tensor, embeds: Params, labels: torch.Tensor,

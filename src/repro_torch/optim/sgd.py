@@ -5,8 +5,11 @@
 with ``u = -eta * grad`` this is heavy-ball momentum kept as the history
 ``h = w_t - w_{t-1}`` (``repro/optim/sgd.py``).  ``momentum_sgd_update`` is
 the in-graph step's optimizer and returns new tensors, like the reference;
-the parameter server applies the same rule in place (``ps/server.py``).
-``update_norm`` is the norm workers ship with ``push()`` (paper Table 1).
+``momentum_sgd_update_`` writes the same values, bit for bit, into the
+params and history it is given (the reference's donation of both to its
+jitted step); the parameter server applies the rule in place its own way
+(``ps/server.py``).  ``update_norm`` is the norm workers ship with
+``push()`` (paper Table 1).
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import torch
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Params = Any
+
+# f32 elements of one piece of the in-place update: each of its temporaries
+# is at most 256 MiB, whatever the leaf (one deepseek-v2 expert weight is
+# 1.26 G elements)
+CHUNK = 2 ** 26
 
 
 class MomentumState(NamedTuple):
@@ -53,6 +61,50 @@ def momentum_sgd_update(params: Params, grads: Params, state: MomentumState,
         new_h.append(h_new)
     return (tree_unflatten(treedef, new_p),
             MomentumState(history=tree_unflatten(treedef, new_h)))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the storage it updates), a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _pieces(t: torch.Tensor, chunk: int):
+    """Contiguous ``t`` as consecutive flat views of at most ``chunk``
+    elements."""
+    flat = t.view(-1)
+    return [flat[i:i + chunk] for i in range(0, flat.numel(), chunk)]
+
+
+@torch.no_grad()
+def momentum_sgd_update_(params: Params, grads: Params, state: MomentumState,
+                         *, lr: float, gamma: float = 0.9,
+                         weight_decay: float = 0.0, chunk: int = CHUNK,
+                         ) -> Tuple[Params, MomentumState]:
+    """``momentum_sgd_update`` in place: every param leaf and its f32
+    history are overwritten with the values the functional update returns,
+    bit for bit (the same operations in the same order: ``-lr * g`` and
+    ``gamma * h`` as two products, then their sum, with no fused
+    multiply-add), and ``(params, state)`` themselves are returned.  Each
+    leaf is worked in pieces of ``chunk`` elements, so no temporary is
+    larger than one piece in f32.  A DTensor leaf is updated on its local
+    shard.  Read nothing that aliases a param or its history during the
+    update (e.g. a graph that saved them)."""
+    for p, g, h in zip(tree_leaves(params), tree_leaves(grads),
+                       tree_leaves(state.history)):
+        leaf = (_local(p), _local(g), _local(h))
+        if all(x.is_contiguous() for x in leaf):
+            leaf = [_pieces(x, chunk) for x in leaf]
+        else:                  # one piece, the whole leaf
+            leaf = [[x] for x in leaf]
+        for pc, gc, hc in zip(*leaf):
+            gf = gc.to(torch.float32)
+            if weight_decay:
+                gf = gf + weight_decay * pc.to(torch.float32)
+            hc.copy_(-lr * gf + gamma * hc)
+            del gf
+            pc.copy_(pc.to(torch.float32) + hc)
+    return params, state
 
 
 def update_norm(update: Params) -> torch.Tensor:

@@ -754,3 +754,49 @@ class TestWhisperOnCard:
                 assert a.is_cuda
                 torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
                                            msg=name)
+
+
+@pytest.mark.cuda
+class TestSlice12OnCard:
+    """The kernels' routes on the card: a real CUDA tensor launches the
+    kernel, a fake one on the card takes the shape rule (no kernel runs);
+    and the in-place eq.-2 update bit-equal to the functional one on the
+    card, in pieces that split no leaf evenly."""
+
+    def test_real_and_fake_cuda_tensors(self):
+        _need_card()
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        x = torch.from_numpy(_x(1000, seed=3)).cuda()
+        before = ops.quantize_op.launches
+        q, s = ops.quantize_op(x)
+        qp, sp = quantize_plain(torch.nn.functional.pad(x, (0, 24)))
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        assert ops.quantize_op.launches == before + 1
+        with FakeTensorMode():
+            xf = torch.empty(1000, device="cuda")
+            assert ops._route(xf, "t") == ops.SHAPE
+            qf, sf = ops.quantize_op(xf)
+        assert qf.device.type == "cuda" and qf.shape == q.shape
+        assert sf.shape == s.shape and qf.dtype == torch.int8
+        assert ops.quantize_op.launches == before + 1   # no kernel ran
+
+    def test_inplace_update_bitwise(self):
+        _need_card()
+        from repro_torch.optim import (MomentumState, momentum_sgd_update,
+                                       momentum_sgd_update_)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shapes = [(1000, 77), (5,), (3, 4096)]
+
+        def tree(dtype):
+            return {f"l{i}": torch.randn(s, generator=gen, device="cuda")
+                    .to(dtype) for i, s in enumerate(shapes)}
+
+        params, grads = tree(torch.bfloat16), tree(torch.bfloat16)
+        state = MomentumState(history=tree(torch.float32))
+        want_p, want_s = momentum_sgd_update(params, grads, state, lr=1e-3,
+                                             weight_decay=1e-2)
+        momentum_sgd_update_(params, grads, state, lr=1e-3,
+                             weight_decay=1e-2, chunk=999)
+        for k in params:
+            assert torch.equal(params[k], want_p[k])
+            assert torch.equal(state.history[k], want_s.history[k])
