@@ -52,9 +52,19 @@ toolkit.  Every line it prints is one JSON object:
    production cell, qwen2-0.5b ``train_4k`` on 16x16 (rank 0 of a fake
    256-rank world, fake tensors on the card), in a subprocess: ``ok``, its
    per-rank FLOPs, bytes, collective bytes and peak, and its trace
-   seconds; it is started after ``elastic`` and read after
-   ``reduced_family_parity`` (it traces on the host's CPU beside the
-   parity phases, which report no time).  Here, before ``mlfabric_step``,
+   seconds, its FLOPs a rank held within ``DRYRUN_FLOPS_RATIO`` of the
+   reference's (``DRYRUN_REF_FLOPS``: the reference's dry-run, written
+   here as a constant) and its peak a rank below 80 GB; then, in the same
+   subprocess, the prediction of cell R's auto step's peak a rank on a
+   fake 4-rank world of its mesh (``sharded_prediction``); it is started
+   after ``elastic`` and read after ``reduced_family_parity`` (it traces
+   on the host's CPU beside the parity phases, which report no time).
+   ``examples``: the five tensor twins of ``examples_torch/``
+   (``async_vs_sync``, ``bounded_replication``, ``failover``,
+   ``lda_topic_model``, ``serve_decode``) with their fast flags, each in
+   a subprocess on the card, started and read beside cell U: each exits
+   0 and prints; its output, seconds and launches are printed.  Here,
+   before ``mlfabric_step``,
    the same analysis (``launch/op_analysis.py``) on this process's
    ``(pod=1, data=1)`` mesh predicts the peaks of cell T's two steps and
    of cell B's plain ``mlfabric_step``, printed before they run.
@@ -167,11 +177,14 @@ toolkit.  Every line it prints is one JSON object:
 30. ``sharded`` (cell R): the full-width Qwen2-0.5B tensor-parallel on a
    ``(pod=1, data=2, model=2)`` world of four gloo processes sharing the
    card (DTensor's collectives staged through the host): the auto,
-   mlfabric and compressed steps at seq 4096 x batch 2, the 32k prefill
-   under "pallas" (24 flash launches a rank on 7 q heads and 1 KV head)
-   and 2 decode steps at batch 16, each against the unsharded step on
-   the card; then the reduced model in f32, card against CPU; per-rank
-   peaks beside the predicted per-rank param bytes.
+   mlfabric and compressed steps at seq 4096 x batch 2 (the auto step's
+   first-step peak a rank within ``SHARDED_PEAK_PRED_TOL`` of cell U's
+   prediction), the 32k prefill under "pallas" on ``(1, 1, 4)`` (the 14
+   q heads padded to 16, 4 a rank, the 2 KV heads replicated: 24 flash
+   launches a rank) and 2 decode steps at batch 16, each against the
+   unsharded step on the card; then the reduced model in f32, card
+   against CPU; per-rank peaks beside the predicted per-rank param
+   bytes.
 31. ``sharded_families`` (cell S): on a world of four gloo processes
    sharing the card, first the reduced granite-moe, deepseek-v2, jamba
    (one group, "mamm"), rwkv6 and whisper in f32, card against CPU
@@ -3611,6 +3624,12 @@ def phase_qwen2_7b_serve() -> dict:
 # slice 10: the dense decoder tensor-parallel on a model axis (cell R)
 # --------------------------------------------------------------------------- #
 SHARDED_MESH = ((1, 2, 2), ("pod", "data", "model"))
+# the 32k prefill's mesh: qwen2-0.5b's 14 q heads padded to 16 over 4
+# ranks, 4 a rank, its 2 KV heads replicated (the padded head split)
+SHARDED_PREFILL_MESH = ((1, 1, 4), ("pod", "data", "model"))
+# the auto step's measured peak a rank against the dry-run's prediction
+# on a fake 4-rank world of the same mesh (``sharded_prediction``)
+SHARDED_PEAK_PRED_TOL = 0.05
 SHARDED_TRAIN = {"auto": {}, "mlfabric": {"grad_path": "mlfabric"},
                  "compressed": {"grad_path": "mlfabric",
                                 "compress_inter": True}}
@@ -3744,6 +3763,16 @@ def _block_err(local, ref, sl) -> float:
         float(ref.float().abs().max()), 1e-30)
 
 
+def prefill_heads(r: int) -> list:
+    """(q heads, kv heads) of each of the 32k prefill's 24 flash launches
+    on the rank at ``model`` coordinate ``r`` of ``SHARDED_PREFILL_MESH``:
+    14 q heads padded to 16, 4 a rank, and the kv heads they read."""
+    from repro_torch.models.attention import local_heads, local_kv
+    heads, kv_of = local_heads(ATTN_HEADS, ATTN_KV_HEADS,
+                               SHARDED_PREFILL_MESH[0][2], r)
+    return [[len(heads), len(local_kv(kv_of))]] * 24
+
+
 def sharded_rank(ref_dir: str) -> None:
     """One rank of cell R's world (four gloo processes on the one card,
     DTensor's collectives staged through the host): the full-width
@@ -3796,6 +3825,7 @@ def sharded_rank(ref_dir: str) -> None:
         ref = torch.load(f"{ref_dir}/{name}.pt")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        at_start = torch.cuda.memory_allocated(dev)
         zero_launches()
         losses, secs = [], []
         for i, b in enumerate(batches):
@@ -3805,6 +3835,7 @@ def sharded_rank(ref_dir: str) -> None:
             secs.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
             if i == 0:
+                first_peak = torch.cuda.max_memory_allocated(dev)
                 close, worst = True, 0.0
                 for (t, sl), r in zip(blocks(p, sp), ref["params"]):
                     a, b_ = t.float().cpu(), r[sl].float()
@@ -3819,6 +3850,7 @@ def sharded_rank(ref_dir: str) -> None:
                                  tree_leaves(p), tree_leaves(sp)))}
         res["train"][name] = {
             **first, "losses": losses, "warmup_s": secs[0],
+            "allocated_at_start": at_start, "first_step_peak": first_peak,
             "step_s": secs[1:], "s_per_step": sum(secs[1:]) / SHARDED_TIMED,
             "launches": ops_launches(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
@@ -3826,9 +3858,10 @@ def sharded_rank(ref_dir: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- the 32k prefill under "pallas", the flash kernel on local heads --
-    p = shd.shard_tree(full, mesh, specs)
-    del full
+    # -- the 32k prefill under "pallas" on (1, 1, 4): the flash kernel on
+    # each rank's 4 padded q heads --
+    pmesh = make_mesh(*SHARDED_PREFILL_MESH, device=dev)
+    p = shd.shard_tree(full, pmesh, shd.param_shardings(cfg, pmesh, full))
     heads = []
     flash = attention.flash_attention_op
 
@@ -3838,7 +3871,7 @@ def sharded_rank(ref_dir: str) -> None:
 
     attention.flash_attention_op = recording
     attention.set_attention_impl("pallas")
-    step = build_step(cfg, shapes["prefill"], mesh)
+    step = build_step(cfg, shapes["prefill"], pmesh)
     zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3849,22 +3882,26 @@ def sharded_rank(ref_dir: str) -> None:
     attention.set_attention_impl("blockwise")
     attention.flash_attention_op = flash
     ref = torch.load(f"{ref_dir}/prefill.pt")
-    lspec = shd._fit_spec(mesh, shd.P(None, "model"), tuple(logits.shape))
+    lspec = shd._fit_spec(pmesh, shd.P(None, "model"), tuple(logits.shape))
     err = {"logits": _block_err(logits.to_local(), ref["logits"],
-                                shd.shard_slices(mesh, lspec,
+                                shd.shard_slices(pmesh, lspec,
                                                  tuple(logits.shape),
-                                                 mesh.coords))}
-    cspecs = shd.cache_shardings(cfg, mesh, cache, PREFILL_BATCH)
+                                                 pmesh.coords))}
+    cspecs = shd.cache_shardings(cfg, pmesh, cache, PREFILL_BATCH)
     for k, t in cache["layers"].items():
         err[k] = _block_err(t.to_local(), ref["cache"][k], shd.shard_slices(
-            mesh, cspecs["layers"][k], tuple(t.shape), mesh.coords))
-    res["prefill"] = {"rel_err": err, "s": secs,
-                      "launches": ops_launches(), "flash_heads": heads,
+            pmesh, cspecs["layers"][k], tuple(t.shape), pmesh.coords))
+    res["prefill"] = {"mesh": SHARDED_PREFILL_MESH, "rel_err": err,
+                      "s": secs, "launches": ops_launches(),
+                      "flash_heads": heads, "want_heads": prefill_heads(
+                          pmesh.coords["model"]),
                       "max_memory_allocated":
                           torch.cuda.max_memory_allocated(dev)}
-    del logits, cache, ref, step
+    del logits, cache, ref, step, p
     gc.collect()
     torch.cuda.empty_cache()
+    p = shd.shard_tree(full, mesh, specs)
+    del full
 
     # -- decode at decode_32k's positions, batch 16 ------------------------
     seq = shapes["decode"].seq_len
@@ -4003,16 +4040,19 @@ def sharded_rank(ref_dir: str) -> None:
     print(json.dumps(res), flush=True)
 
 
-def phase_sharded() -> dict:
+def phase_sharded(pred: dict) -> dict:
     """Cell R: the full-width Qwen2-0.5B tensor-parallel on a ``(pod=1,
     data=2, model=2)`` world of four gloo processes sharing the one card
     (``sharded_rank``), every result against the unsharded step on this
     card from the same params and inputs (``sharded_reference``): the
     auto, mlfabric and compressed steps at seq 4096 and global batch 2
     (loss within ``SHARDED_BF16_TOL`` of the reference's, params within it
-    as cell B holds them), the 32k prefill under "pallas" (24 flash
-    launches a rank, each on 7 q heads and 1 KV head; logits and cache
-    within ``BF16_PREFILL_TOL`` of the largest value), and 2 decode steps
+    as cell B holds them; the auto step's first-step peak a rank within
+    ``SHARDED_PEAK_PRED_TOL`` of ``pred``, the dry-run's prediction), the
+    32k prefill under "pallas" on ``(1, 1, 4)`` (24 flash launches a rank,
+    each on 4 of the 14 q heads padded to 16 and the KV heads they read;
+    logits and cache within ``BF16_PREFILL_TOL`` of the largest value),
+    and 2 decode steps
     at batch 16 at the last positions of ``decode_32k`` (logits and the
     written rows within the same).  Then the reduced model in f32, card
     against CPU: loss rtol 1e-5, params rtol 1e-4 / atol 1e-6, prefill
@@ -4045,10 +4085,17 @@ def phase_sharded() -> dict:
           "world": "pod=1 x data=2 x model=2, gloo, "
           "one card, DTensor collectives staged through the host",
           "nvidia_smi": smi, "world_s": world_s, **ref, "ranks": res})
-    heads = [(ATTN_HEADS // 2, ATTN_KV_HEADS // 2)] * 24
     totals = dict.fromkeys(KERNELS, 0)
     for r in res:
         who = f"sharded rank {r['rank']}"
+        auto = r["train"]["auto"]
+        emit({"phase": "sharded", "check": "peak", "rank": r["rank"],
+              "nvidia_smi": smi, "prediction_trace_s": pred["trace_s"],
+              "predicted_peak_holders": pred["peak_holders"],
+              **peak_against_prediction(
+                  f"{who} auto", auto["first_step_peak"],
+                  auto["allocated_at_start"], pred,
+                  tol=SHARDED_PEAK_PRED_TOL)})
         check(r["param_bytes_held"] == r["param_bytes_predicted"],
               f"{who}: holds {r['param_bytes_held']} param bytes, "
               f"param_shardings predicts {r['param_bytes_predicted']}")
@@ -4068,7 +4115,9 @@ def phase_sharded() -> dict:
               f"{who}: the int8 wire did not run: {launched}")
         pre = r["prefill"]
         check(pre["launches"]["flash_attention"] == 24
-              and [tuple(h) for h in pre["flash_heads"]] == heads,
+              and pre["flash_heads"] == pre["want_heads"]
+              and pre["want_heads"][0][0] == -(-ATTN_HEADS
+                                               // SHARDED_PREFILL_MESH[0][2]),
               f"{who}: flash on local heads: {pre['launches']} "
               f"{pre['flash_heads']}")
         check(all(v <= BF16_PREFILL_TOL for v in pre["rel_err"].values()),
@@ -4367,6 +4416,7 @@ def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
         ref = torch.load(f"{ref_dir}/{part}_{name}.pt")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        at_start = torch.cuda.memory_allocated(dev)
         zero_launches()
         losses, secs = [], []
         for i, b in enumerate(batches):
@@ -4376,6 +4426,7 @@ def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
             secs.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
             if i == 0:
+                first_peak = torch.cuda.max_memory_allocated(dev)
                 first = compare_sample(p, sp, mesh, ref["sample"],
                                        SHARDED_BF16_TOL)
                 first["placements_kept"] = all(
@@ -5127,6 +5178,16 @@ def phase_reduced_family_parity() -> None:
 # --------------------------------------------------------------------------- #
 DRYRUN_CELL = ("qwen2-0.5b", "train_4k")     # cell U, on 16x16
 DRYRUN_TIMEOUT_S = 400
+# the reference's numbers for cell U (the card host has no JAX):
+# ``PYTHONPATH=src python -m repro.launch.dryrun --arch qwen2-0.5b --shape
+# train_4k`` on the 16x16 mesh of 256 forced CPU devices (jax 0.9.0), its
+# ``flops_per_device`` and ``memory.peak_bytes``
+DRYRUN_REF_FLOPS = 20711045332992.0
+DRYRUN_REF_PEAK = 5329617256
+# the port pads qwen2-0.5b's 14 heads to 16 over the model axis of 16
+# (16/14 on the attention share) and recomputes each loss chunk's logits
+# in the backward; 1.2x of the reference's FLOPs a rank allows both
+DRYRUN_FLOPS_RATIO = 1.2
 DS_ARCH, DS_LAYERS = "deepseek-v2-236b", 1   # cell T: cell S2's part
 DS_BATCH = 2                     # train_4k's global batch 256, cut to 2
 DS_FIT_BYTES = 76e9              # each step must be predicted at or below
@@ -5195,8 +5256,27 @@ def step_predictions(dev) -> dict:
     return out
 
 
+def sharded_prediction(out_dir: str) -> None:
+    """The dry-run's prediction of cell R's auto step (``analyze_step`` of
+    its ``fn``, as ``sharded_rank`` calls it) as rank 0 of a fake world of
+    four ranks on ``SHARDED_MESH``, written to ``out_dir``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build_step, make_mesh
+    from repro_torch.launch.dryrun import analyze_step, fake_world, \
+        trace_device
+    fake_world(4)
+    mesh = make_mesh(*SHARDED_MESH, device=trace_device())
+    cfg, shape = get_config(FULL_ARCH), sharded_shapes()["train"]
+    bundle = build_step(cfg, shape, mesh, lr=STEP_LR, gamma=STEP_GAMMA,
+                        remat=True, **SHARDED_TRAIN["auto"])
+    r = analyze_step(bundle, cfg, shape, mesh, "auto", donate=False)
+    with open(os.path.join(out_dir, "sharded_auto.json"), "w") as f:
+        json.dump(r, f)
+
+
 def start_dryrun() -> tuple:
-    """Cell U, started: the dry-run CLI on one production cell in a
+    """Cell U, started: the dry-run CLI on one production cell, then the
+    prediction of cell R's auto step (``sharded_prediction``), in one
     subprocess (this card's torch, on the host's CPU while the parity
     phases run, which report no time); returns the running cell for
     ``finish_dryrun``.  The subprocess is killed at exit if the script
@@ -5207,18 +5287,96 @@ def start_dryrun() -> tuple:
     arch, shape = DRYRUN_CELL
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root)]))
+    code = ("import sys, chip_smoke\n"
+            "from repro_torch.launch import dryrun\n"
+            "arch, shape, out = sys.argv[1:4]\n"
+            "sys.argv = ['dryrun', '--arch', arch, '--shape', shape,"
+            " '--out', out]\n"
+            "rc = dryrun.main()\n"
+            "chip_smoke.sharded_prediction(out)\n"
+            "sys.exit(rc)\n")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", out_dir], cwd=str(root), env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        [sys.executable, "-c", code, arch, shape, out_dir], cwd=str(root),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, out_dir, t0
 
 
-def finish_dryrun(cell: tuple) -> None:
-    """Cell U's result: read, printed and checked."""
+# the tensor twins of ``examples/`` and their fast flags (those of
+# ``tests/test_examples_smoke.py``), run on the card
+EXAMPLES = {
+    "async_vs_sync.py": ["--quick"],
+    "bounded_replication.py": [],
+    "failover.py": [],
+    "lda_topic_model.py": ["--quick"],
+    "serve_decode.py": ["--batch", "1", "--prompt-len", "8",
+                        "--new-tokens", "4"],
+}
+EXAMPLES_TIMEOUT_S = 600
+# a twin run as its user runs it, then the port's kernel launches in its
+# process printed on a last line
+_EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.kernels import ops\n"
+    "print('LAUNCHES ' + json.dumps({k: getattr(ops, k + '_op').launches "
+    "for k in %r}))\n" % (KERNELS,))
+
+
+def start_examples() -> dict:
+    """The ``examples`` phase, started: each tensor twin of
+    ``examples_torch/`` in a subprocess of its own on the card, all at
+    once (beside the parity phases, which report no time)."""
+    import atexit
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in EXAMPLES.items():
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE_RUNNER,
+             str(root / "examples_torch" / name), *args, "--device", "cuda"],
+            cwd=str(root), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for _, p in procs.values():
+        atexit.register(lambda p=p: p.poll() is None and p.kill())
+    return procs
+
+
+def finish_examples(procs: dict) -> dict:
+    """The ``examples`` phase's results: each twin exits 0 and prints; its
+    output, seconds and launches are printed.  Returns the launches."""
+    totals = dict.fromkeys(KERNELS, 0)
+    for name, (t0, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        lines = stdout.strip().splitlines()
+        launches = (json.loads(lines[-1].split(" ", 1)[1])
+                    if lines and lines[-1].startswith("LAUNCHES ") else {})
+        emit({"phase": "examples", "example": name, "args": EXAMPLES[name],
+              "exit": proc.returncode, "s_to_finish":
+                  time.perf_counter() - t0, "launches": launches,
+              "output": lines[:-1]})
+        check(proc.returncode == 0,
+              f"examples_torch/{name}: exit {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        check(len(lines) > 1, f"examples_torch/{name} printed nothing")
+        for k in KERNELS:
+            totals[k] += launches.get(k, 0)
+    return totals
+
+
+def finish_dryrun(cell: tuple) -> dict:
+    """Cell U's result: read, printed and checked (its FLOPs a rank within
+    ``DRYRUN_FLOPS_RATIO`` of the reference's, its peak a rank below the
+    card); returns the prediction of cell R's auto step."""
     import shutil
     import torch
 
@@ -5235,6 +5393,8 @@ def finish_dryrun(cell: tuple) -> None:
           f"dryrun {arch} {shape}: exit {proc.returncode}: {stderr[-2000:]}")
     with open(os.path.join(out_dir, f"{arch}__{shape}__16-16.json")) as f:
         res = json.load(f)
+    with open(os.path.join(out_dir, "sharded_auto.json")) as f:
+        pred = json.load(f)
     shutil.rmtree(out_dir, ignore_errors=True)
     emit({"phase": "dryrun", "cell": "U", "arch": arch, "shape": shape,
           "torch": torch.__version__, "line": stdout.strip().splitlines()[-1],
@@ -5244,7 +5404,16 @@ def finish_dryrun(cell: tuple) -> None:
               "collective_bytes_per_device", "collective_by_kind",
               "memory", "t_compute", "t_memory", "t_collective",
               "bottleneck")},
+          "reference_flops_per_device": DRYRUN_REF_FLOPS,
+          "reference_peak_bytes": DRYRUN_REF_PEAK,
+          "flops_vs_reference": res["flops_per_device"] / DRYRUN_REF_FLOPS,
+          "peak_vs_reference": res["memory"]["peak_bytes"] / DRYRUN_REF_PEAK,
           "wall_s_to_finish": wall})
+    emit({"phase": "dryrun", "prediction": "sharded/auto",
+          "mesh": SHARDED_MESH, "peak_bytes": pred["peak_bytes"],
+          "argument_bytes": pred["argument_bytes"],
+          "peak_holders": pred["peak_holders"], "flops": pred["flops"],
+          "trace_s": pred["trace_s"]})
     check(res["status"] == "ok" and res["n_devices"] == 256,
           f"dryrun {arch} {shape}: {res['status']}")
     check(res["trace_device"].startswith("cuda"),
@@ -5252,19 +5421,25 @@ def finish_dryrun(cell: tuple) -> None:
     check(res["flops_per_device"] > 0 and res["memory"]["peak_bytes"] > 0
           and res["collective_bytes_per_device"] > 0,
           f"dryrun {arch} {shape}: empty counts")
+    check(res["flops_per_device"] <= DRYRUN_FLOPS_RATIO * DRYRUN_REF_FLOPS,
+          f"dryrun {arch} {shape}: {res['flops_per_device']} FLOPs a rank "
+          f"against the reference's {DRYRUN_REF_FLOPS}")
+    check(res["memory"]["peak_bytes"] < CARD_BYTES,
+          f"dryrun {arch} {shape}: peak {res['memory']['peak_bytes']} a rank")
+    return pred
 
 
 def peak_against_prediction(what: str, peak: int, at_start: int,
-                            pred: dict) -> dict:
+                            pred: dict, tol: float = PEAK_PRED_TOL) -> dict:
     """The prediction with its argument bytes swapped for all the process
     held when the step started, and the measured peak's error against
-    it; checked within ``PEAK_PRED_TOL`` and below the card."""
+    it; checked within ``tol`` and below the card."""
     want = pred["peak_bytes"] - pred["argument_bytes"] + at_start
     err = (peak - want) / want
     check(peak < CARD_BYTES, f"{what}: peak {peak} bytes")
-    check(abs(err) <= PEAK_PRED_TOL,
+    check(abs(err) <= tol,
           f"{what}: peak {peak} against the dry-run's {want} "
-          f"({err:+.3f}, limit {PEAK_PRED_TOL})")
+          f"({err:+.3f}, limit {tol})")
     return {"max_memory_allocated": peak, "allocated_at_start": at_start,
             "predicted_peak": want, "peak_vs_prediction": err}
 
@@ -5507,10 +5682,12 @@ def main() -> int:
     pod_launches = phase_pod_async()
     elastic_launches = phase_elastic()
     dryrun_cell = start_dryrun()
+    examples = start_examples()
     phase_reduced_ps_parity()
     phase_mlfabric_ranks()
     phase_reduced_family_parity()
-    finish_dryrun(dryrun_cell)
+    sharded_pred = finish_dryrun(dryrun_cell)
+    examples_launches = finish_examples(examples)
     scenario_launches = phase_scenario(rows)
     moe_train_launches = phase_moe_train()
     moe_serve_launches = phase_moe_serve()
@@ -5520,7 +5697,7 @@ def main() -> int:
                        for a in SERVE_CELLS}
     family_launches["whisper_train"] = phase_whisper_train()
     family_launches["rwkv_train"] = phase_rwkv_train()
-    family_launches["sharded"] = phase_sharded()
+    family_launches["sharded"] = phase_sharded(sharded_pred)
     family_launches["sharded_families"] = phase_sharded_families()
     family_launches["deepseek_train"] = phase_deepseek_train(preds)
     import torch.distributed as dist
@@ -5533,7 +5710,8 @@ def main() -> int:
                "pod_async": pod_launches, "elastic": elastic_launches,
                "scenario": scenario_launches, "moe_train": moe_train_launches,
                "moe_serve": moe_serve_launches, "vlm_serve": vlm_launches,
-               "qwen2_7b_serve": dense_7b_launches, **family_launches}
+               "qwen2_7b_serve": dense_7b_launches,
+               "examples": examples_launches, **family_launches}
     total = {k: sum(p.get(k, 0) for p in by_path.values()) for k in KERNELS}
     for k, n in total.items():
         check(n > 0, f"{k} was not launched on the main paths")

@@ -184,6 +184,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "output_bytes": a["output_bytes"],
             "temp_bytes": a["peak_bytes"] - a["argument_bytes"],
             "peak_bytes": a["peak_bytes"],
+            "peak_holders": a["peak_holders"],
         },
         "t_compute": a["flops"] / PEAK_FLOPS,
         "t_memory": a["bytes"] / HBM_BW,

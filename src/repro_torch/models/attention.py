@@ -193,16 +193,19 @@ class _FlashAttention(torch.autograd.Function):
 def _attend_local(fn: Callable, q, k, v):
     """``fn(q, k, v)`` on this rank's local heads: q, k, v ([B, S, H, D]
     DTensors) are laid out with the batch over the data axes where it
-    divides (``batch_spec_axes``) and the heads over ``model`` where both
-    head counts divide (``head_policy``), else replicated there as GSPMD
-    would, and ``fn`` (the blockwise loop or the flash kernel) runs on the
-    local tensors; the result is a DTensor in the same layout."""
+    divides (``batch_spec_axes``) and the q heads over ``model``, and
+    ``fn`` (the blockwise loop or the flash kernel) runs on the local
+    tensors.  Where both head counts divide the axis (``head_policy``)
+    the kv heads are split beside the q heads and the result is a DTensor
+    in the same layout; otherwise the heads are padded
+    (``_attend_padded``)."""
     from torch.distributed.tensor import DTensor
     dm = q.device_mesh
     mesh = mesh_view(dm)
     m = mesh.shape.get("model", 1)
-    heads = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
-    spec = P(batch_spec_axes(mesh, q.shape[0]), None, heads, None)
+    if q.shape[2] % m or k.shape[2] % m:
+        return _attend_padded(fn, q, k, v, mesh)
+    spec = P(batch_spec_axes(mesh, q.shape[0]), None, "model", None)
     local = [_ContiguousGrad.apply(t.redistribute(dm, placements(
         mesh, _fit_spec(mesh, spec, tuple(t.shape)))).to_local())
         for t in (q, k, v)]
@@ -210,6 +213,69 @@ def _attend_local(fn: Callable, q, k, v):
     # kernel's output is a transposed view
     return DTensor.from_local(fn(*local).contiguous(), dm, placements(
         mesh, _fit_spec(mesh, spec, tuple(q.shape))), run_check=False)
+
+
+def local_heads(h: int, kvh: int, m: int, r: int):
+    """The q heads rank ``r`` of a ``model`` axis of ``m`` computes when
+    ``h`` is padded up to a multiple of ``m`` (``ceil(h / m)`` a rank,
+    ``range(r * hl, (r + 1) * hl)``; those from ``h`` on are zero heads),
+    and for each the kv head it reads (group ``j // (h / kvh)``; a padded
+    head reads the last real head's)."""
+    hl, g = -(-h // m), h // kvh
+    heads = range(r * hl, (r + 1) * hl)
+    return heads, [min(j, h - 1) // g for j in heads]
+
+
+def local_kv(kv_of) -> list:
+    """The kv heads a rank's attention takes for its q heads' ``kv_of``
+    (``local_heads``): each once where the heads fall in whole groups of
+    one run of kv heads (GQA kept), else one a q head."""
+    hl, n = len(kv_of), len(set(kv_of))
+    if hl % n == 0 and list(kv_of) == [kv_of[0] + i * n // hl
+                                       for i in range(hl)]:
+        return list(range(kv_of[0], kv_of[0] + n))
+    return list(kv_of)
+
+
+def _attend_padded(fn: Callable, q, k, v, mesh):
+    """``_attend_local`` where the head counts do not divide the ``model``
+    axis of ``m`` ranks, as GSPMD pads: the q heads are padded up to a
+    multiple of ``m`` with zero heads and split, ``ceil(H / m)`` a rank;
+    the kv heads, which do not divide, are replicated over ``model``, and
+    each rank takes those its heads read (``local_kv``).  The padded
+    heads' outputs are dropped, so their gradients are zero, and q's and
+    k's and v's gradients are partial sums over ``model`` of each rank's
+    heads.  The outputs are gathered over
+    ``model``: the result's heads are whole there (the layout
+    ``split_heads`` gives heads that do not divide)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dm = q.device_mesh
+    m = mesh.shape["model"]
+    h, kvh = q.shape[2], k.shape[2]
+    ba = batch_spec_axes(mesh, q.shape[0])
+    whole = placements(mesh, _fit_spec(mesh, P(ba, None, None, None),
+                                       tuple(q.shape)))
+    mi = [n for n in mesh.axis_names if mesh.shape[n] > 1].index("model")
+    part = [Partial() if i == mi else pl for i, pl in enumerate(whole)]
+    heads, kv_of = local_heads(h, kvh, m, dm.get_local_rank("model"))
+    hl = len(heads)
+    if h % m == 0:          # the q heads divide: split them as they are
+        ql = _ContiguousGrad.apply(q.redistribute(dm, placements(
+            mesh, _fit_spec(mesh, P(ba, None, "model", None),
+                            tuple(q.shape)))).to_local())
+    else:
+        qw = q.redistribute(dm, whole).to_local(grad_placements=part)
+        ql = _ContiguousGrad.apply(qw)[:, :, heads.start:min(heads.stop, h)]
+        ql = torch.nn.functional.pad(ql, (0, 0, 0, hl - ql.shape[2]))
+    kv = [_ContiguousGrad.apply(t.redistribute(dm, whole).to_local(
+        grad_placements=part)) for t in (k, v)]
+    idx = torch.tensor(local_kv(kv_of), device=kv[0].device)
+    out = fn(ql, *(t.index_select(2, idx) for t in kv)).contiguous()
+    split = placements(mesh, _fit_spec(mesh, P(ba, None, "model", None),
+                                       (q.shape[0], 1, m * hl, 1)))
+    out = DTensor.from_local(out, dm, split, run_check=False)
+    out = out.redistribute(dm, whole).to_local()[:, :, :h]
+    return DTensor.from_local(out, dm, whole, run_check=False)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,7 +377,11 @@ class _CacheBlock:
     ``cache_shardings`` (the batch over the data axes, the sequence over
     ``model``): the new token's placements (the cache's batch layout,
     replicated elsewhere), the block's first position ``lo`` and length,
-    and the group its sequence is split over (None where it is whole)."""
+    and the group its sequence is split over (None where it is whole).
+    Decode splits the positions, not the heads, whatever the head counts:
+    each rank attends every head of its block with the split softmax, as
+    the reference's cache rules lay the cache out, so the padded head
+    split of training and prefill (``_attend_padded``) does not apply."""
 
     def __init__(self, cache: torch.Tensor):
         from torch.distributed.tensor import Replicate, Shard
@@ -409,7 +479,10 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     """[..., n * hd] -> [..., n, hd].  A DTensor split along its last dim
     into pieces that hold no whole number of heads (2 KV heads over a
-    ``model`` axis of 4) is made whole along it first, as GSPMD would."""
+    ``model`` axis of 4) is made whole along it first: DTensor cannot
+    unflatten such a split.  ``_attend_local`` then splits the q heads
+    over ``model`` again, padded where they do not divide
+    (``_attend_padded``), and the kv heads stay whole there."""
     if is_dtensor(t):
         from torch.distributed.tensor import Shard
         pieces = math.prod(size for size, pl in zip(
@@ -423,9 +496,9 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 class _MergeHeads(torch.autograd.Function):
     """[..., n, hd] -> [..., n * hd], whose backward makes the gradient
     whole along its last dim where a DTensor splits it into pieces that
-    hold no whole number of heads (14 heads over a ``model`` axis of 16),
-    as ``split_heads`` does forward: DTensor cannot unflatten such a
-    split."""
+    hold no whole number of heads (14 heads over a ``model`` axis of 16:
+    ``wo``'s rows split into 56-row pieces), as ``split_heads`` does
+    forward: DTensor cannot unflatten such a split."""
 
     @staticmethod
     def forward(ctx, t):
@@ -540,7 +613,8 @@ def gqa_decode_q8(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     jitted scale (``quantize_kv``).  On a DTensor cache (the sequence over
     ``model``) the new token is quantized whole, the rank holding ``pos``
     writes it into its block, and every rank attends over its block with
-    the split softmax, as ``gqa_decode`` does."""
+    the split softmax, every head, as ``gqa_decode`` does (``_CacheBlock``:
+    the heads are not split in decode)."""
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         q, k = _rope_at(q, k, pos, cfg)

@@ -103,8 +103,11 @@ def cross_kv(cross: Params, enc_out: torch.Tensor, cfg: ModelConfig
     if "bk" in p:
         k = k + p["bk"][:, None, None]
         v = v + p["bv"][:, None, None]
-    # heads that do not divide ``model`` are made whole first
-    # (``head_policy``), as in the self-attention
+    # heads that do not divide ``model`` are made whole first, as in the
+    # self-attention: in training the cross-attention splits its q heads
+    # over ``model`` (padded, ``attention._attend_padded``) and keeps these
+    # whole; decode reads them in ``cache_shardings``' layout (the frames
+    # over ``model``, every head)
     kvh = k.shape[-1] // cfg.head_dim
     return (attn.split_heads(k, kvh, cfg.head_dim),
             attn.split_heads(v, kvh, cfg.head_dim))

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -218,17 +219,99 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
     """Cross-entropy over a (padded) vocab; padded ids are masked out.
 
-    logits: [..., V_pad], labels: [...] int -> per-position loss f32.
+    logits: [..., V_pad], labels: [...] int -> per-position loss f32.  A
+    DTensor split along the vocab is taken on each rank's block
+    (``_xent_vocab_split``): the vocab is never made whole.
     """
+    if is_dtensor(logits):
+        return _xent_vocab_split(logits, labels, vocab_size)
     v_pad = logits.shape[-1]
     logits = logits.to(torch.float32)
     if v_pad > vocab_size:
         pad = torch.arange(v_pad, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(whole_last_dim(logits), -1,
-                        labels.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+def _all_reduce(t: torch.Tensor, groups, op) -> torch.Tensor:
+    for g in groups:
+        torch.distributed.all_reduce(t, op=op, group=g)
+    return t
+
+
+class _BlockXent(torch.autograd.Function):
+    """The cross-entropy of rows whose logits ``x`` [..., Vb] are this
+    rank's block of the vocab, ids ``lo .. lo + Vb - 1``, among
+    ``groups`` (the process groups that split the vocab): the logsumexp
+    from each block's max and sum of exponentials, and the gold logit as a
+    sum of the one block holding it, each reduced over ``groups``.  The
+    backward writes only the block: ``softmax - onehot`` there, from the
+    saved block and the row's logsumexp."""
+
+    @staticmethod
+    def _f32(x, lo: int, vocab_size: int) -> torch.Tensor:
+        """A new f32 copy of the block, padded ids at -1e30."""
+        xf = x.to(torch.float32, copy=True)
+        if lo + x.shape[-1] > vocab_size:
+            xf[..., max(vocab_size - lo, 0):] = -1e30
+        return xf
+
+    @staticmethod
+    def forward(ctx, x, labels, lo: int, vocab_size: int, groups):
+        xf = _BlockXent._f32(x, lo, vocab_size)
+        peak = _all_reduce(torch.amax(xf, dim=-1), groups,
+                           torch.distributed.ReduceOp.MAX)
+        at = labels.long() - lo
+        mine = (at >= 0) & (at < x.shape[-1])
+        at = at.clamp(0, x.shape[-1] - 1)[..., None]
+        gold = torch.where(mine, torch.gather(xf, -1, at)[..., 0], 0.0)
+        total = torch.sum(xf.sub_(peak[..., None]).exp_(), dim=-1)
+        logz = peak + torch.log(_all_reduce(
+            total, groups, torch.distributed.ReduceOp.SUM))
+        gold = _all_reduce(gold, groups, torch.distributed.ReduceOp.SUM)
+        ctx.save_for_backward(x, logz, at, mine)
+        ctx.lo, ctx.vocab_size = lo, vocab_size
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz, at, mine = ctx.saved_tensors
+        dx = _BlockXent._f32(x, ctx.lo, ctx.vocab_size)
+        dx.sub_(logz[..., None]).exp_()
+        dx.scatter_add_(-1, at, -mine[..., None].to(dx.dtype))
+        return dx.mul_(g[..., None]).to(x.dtype), None, None, None, None
+
+
+def _xent_vocab_split(logits: torch.Tensor, labels: torch.Tensor,
+                      vocab_size: int) -> torch.Tensor:
+    """``softmax_xent`` of a DTensor ``logits`` on each rank's own rows and
+    block of the vocab (``_BlockXent``); ``labels`` (plain: the same on
+    every rank, or a DTensor) are taken in the rows' layout.  Returns the
+    per-position loss as a DTensor in the rows' layout, replicated over
+    the axes that split the vocab."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm, last = logits.device_mesh, logits.ndim - 1
+    pls = [Replicate() if isinstance(pl, Partial) else pl
+           for pl in logits.placements]
+    logits = logits.redistribute(dm, pls)          # partial sums reduced
+    vocab = [i for i, pl in enumerate(pls)
+             if isinstance(pl, Shard) and pl.dim == last]
+    rows = [Replicate() if i in vocab else pl for i, pl in enumerate(pls)]
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, dm, [Replicate()] * dm.ndim,
+                                    run_check=False)
+    lo, n = 0, logits.shape[-1]         # the block's first id, DTensor's
+    for i in vocab:                     # chunks over each axis in turn
+        step = -(-n // dm.size(i))
+        lo += dm.get_local_rank(i) * step
+        n = max(0, min(step, n - dm.get_local_rank(i) * step))
+    loss = _BlockXent.apply(logits.to_local(),
+                            labels.redistribute(dm, rows).to_local(),
+                            lo, vocab_size,
+                            [dm.get_group(i) for i in vocab])
+    return DTensor.from_local(loss, dm, rows, run_check=False)
 
 
 def _whole_along(t: torch.Tensor, dims) -> torch.Tensor:
@@ -246,10 +329,7 @@ def _whole_along(t: torch.Tensor, dims) -> torch.Tensor:
 
 def whole_last_dim(t: torch.Tensor) -> torch.Tensor:
     """``t`` with its last dim whole on every rank where ``t`` is a DTensor
-    split along it (``t`` itself otherwise).  ``softmax_xent`` gathers the
-    gold logits from the whole vocab: DTensor's gather from a vocab-split
-    tensor (its masked partial) fails to reduce a [B, S, 1] result
-    (PyTorch 2.13)."""
+    split along it (``t`` itself otherwise)."""
     return _whole_along(t, {t.ndim - 1})
 
 
@@ -390,18 +470,31 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _WholeRowsGrad.apply(_split_as_contraction(x, w) @ w)
 
 
+def _chunk_loss(embeds: Params, h: torch.Tensor, labels: torch.Tensor,
+                vocab_size: int) -> torch.Tensor:
+    return torch.sum(softmax_xent(unembed(embeds, h), labels, vocab_size))
+
+
 def chunked_loss(h: torch.Tensor, embeds: Params, labels: torch.Tensor,
                  vocab_size: int, *, chunk: int = 1024) -> torch.Tensor:
     """Mean next-token loss with sequence-chunked logits, so [B, S, V] is
-    never materialized at once.  h: [B, S, d]; labels: [B, S]."""
+    never materialized at once.  h: [B, S, d]; labels: [B, S].  On
+    DTensors each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``), so no chunk's vocab-split logits outlive
+    its own step, as in the reference's ``lax.scan``."""
     b, s, _ = h.shape
     h = whole_rows(h)
     if s % chunk != 0 or s <= chunk:
         return torch.mean(softmax_xent(unembed(embeds, h), labels,
                                        vocab_size))
+    recompute = is_dtensor(h) and torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        logits = unembed(embeds, h[:, i:i + chunk])
-        total = total + torch.sum(softmax_xent(logits, labels[:, i:i + chunk],
-                                               vocab_size))
+        args = (embeds, h[:, i:i + chunk], labels[:, i:i + chunk],
+                vocab_size)
+        if recompute:
+            part = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            part = _chunk_loss(*args)
+        total = total + part
     return total / (b * s)

@@ -4,9 +4,9 @@ package's ``build_step`` on the same meshes
 (``tests/_torch_sharded_twin.py``).
 
 * whisper-tiny: the auto and the MLfabric step on ``(data=2, model=2)``
-  and ``(data=1, model=4)``, where its 2 KV heads do not divide 4 and the
-  cross-attention's keys and values replicate their heads, as the
-  reference's ``head_policy`` does; the prefill of 4 rows beside 16 stub
+  and ``(data=1, model=4)``, where its 2 KV heads do not divide 4: the
+  q heads are split over ``model``, padded, and the cross-attention's
+  keys and values replicate their heads; the prefill of 4 rows beside 16 stub
   frames (its ``cross_kv`` laid out by ``cache_shardings``, the frames
   over ``model``) and 3 decode steps that read ``cross_kv`` and never
   write it.

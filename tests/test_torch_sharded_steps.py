@@ -11,8 +11,9 @@ three meshes:
 
 * ``(data=2, model=2)``: heads divide, so attention runs on 2 q heads and
   1 KV head a rank;
-* ``(data=1, model=4)``: the 2 KV heads do not divide, so attention
-  replicates over ``model``, as GSPMD lays it out;
+* ``(data=1, model=4)``: the 2 KV heads do not divide, so each rank
+  attends its one q head against the replicated KV heads
+  (``models/attention.py:_attend_padded``);
 * ``(pod=2, data=1, model=2)``: the compressed MLfabric step (the int8
   wire runs across pods).
 
