@@ -285,17 +285,64 @@ _CACHE_RULES: Dict[str, Tuple] = {
 }
 
 
+def cache_leaf_spec(mesh, name: str, shape: Tuple[int, ...],
+                    global_batch: int) -> PartitionSpec:
+    """The spec of a cache leaf named ``name`` of ``shape``, stacked
+    ``[L, ...]`` or one layer's: its rule over the trailing dims."""
+    ba = batch_spec_axes(mesh, global_batch)
+    rule = _CACHE_RULES.get(name, ("B",))
+    rule = tuple(ba if e == "B" else e for e in rule) if ba else \
+        tuple(None if e == "B" else e for e in rule)
+    return _rule_sharding(mesh, rule, shape)
+
+
 def cache_shardings(cfg: ModelConfig, mesh, cache_abs: Params,
                     global_batch: int) -> Params:
-    ba = batch_spec_axes(mesh, global_batch)
+    del cfg  # rules are name-based
 
     def one(path, leaf):
-        rule = _CACHE_RULES.get(_leaf_name(path), ("B",))
-        rule = tuple(ba if e == "B" else e for e in rule) if ba else \
-            tuple(None if e == "B" else e for e in rule)
-        return _rule_sharding(mesh, rule, tuple(leaf.shape))
+        return cache_leaf_spec(mesh, _leaf_name(path), tuple(leaf.shape),
+                               global_batch)
 
     return _map_with_path(one, cache_abs)
+
+
+def to_cache_layout(t, name: str):
+    """One layer's cache leaf ``t`` (a DTensor ``[B, S, ...]``, as the
+    layer made it) laid out by ``cache_leaf_spec``, a leaf at a time, so
+    that no rank ever holds more of the cache than its block: a dim split
+    over ``model`` that the layout splits another way (the kv heads, where
+    the cache splits the sequence) moves with one all-to-all over
+    ``model``; every other change is DTensor's (a local slice where the
+    leaf is replicated, as kv heads that do not divide ``model`` are)."""
+    from torch.distributed.tensor import DTensor, Shard
+    dm = t.device_mesh
+    view = mesh_view(dm)
+    want = placements(view, cache_leaf_spec(view, name, tuple(t.shape),
+                                            t.shape[0]))
+    mi = list(dm.mesh_dim_names).index("model")
+    src, dst = t.placements[mi], want[mi]
+    if not (isinstance(src, Shard) and isinstance(dst, Shard)
+            and src.dim != dst.dim):
+        return t.redistribute(dm, want)
+    keep = [src if i == mi else pl for i, pl in enumerate(want)]
+    local = _all_to_all(t.redistribute(dm, keep).to_local(), src.dim,
+                        dst.dim, dm.get_group("model"), dm.size(mi))
+    return DTensor.from_local(local, dm, want, run_check=False)
+
+
+def _all_to_all(x, gather: int, split: int, group, n: int):
+    """``x``, this rank's block along dim ``gather`` of a tensor split over
+    ``group``'s ``n`` ranks, as its block along dim ``split``: x is cut
+    into ``n`` pieces along ``split``, piece ``j`` goes to rank ``j``, and
+    the pieces received are joined along ``gather`` in rank order."""
+    import torch.distributed._functional_collectives as funcol
+    pieces = x.unflatten(split, (n, x.shape[split] // n)).movedim(
+        split, 0).contiguous()
+    got = funcol.all_to_all_single(pieces, None, None, group)
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return got.movedim(0, gather).flatten(gather, gather + 1)
 
 
 # --------------------------------------------------------------------------- #

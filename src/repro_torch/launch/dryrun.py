@@ -185,6 +185,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "temp_bytes": a["peak_bytes"] - a["argument_bytes"],
             "peak_bytes": a["peak_bytes"],
             "peak_holders": a["peak_holders"],
+            "scope_peaks": a["scope_peaks"],
         },
         "t_compute": a["flops"] / PEAK_FLOPS,
         "t_memory": a["bytes"] / HBM_BW,

@@ -23,7 +23,10 @@ in the dry-run; on real tensors it counts the same):
 * ``peak_bytes``: the most bytes held at once by the storages the step's
   arguments and its ops' outputs hold, each counted from its first sight
   until it is freed: the counterpart of argument plus temp bytes;
-  ``peak_holders`` says which ops made them.
+  ``peak_holders`` says which ops made them;
+* ``scope_peaks``: for the ops run inside a :func:`scope` (the decode
+  cache's layout runs in ``scope("cache")``), the most bytes each op's
+  storages held at once at any time, keyed ``"{scope}/{op}"``.
 
 DTensor ops are not counted themselves: the mode defers them to DTensor,
 whose local ops and collectives it then sees, so every number is one
@@ -34,6 +37,7 @@ the rank's.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from collections import Counter
 from typing import Any, Dict, Iterable
@@ -74,6 +78,21 @@ _NO_TRAFFIC = {"aten::detach", "aten::alias", "aten::empty",
                "aten::_local_scalar_dense", "aten::lift_fresh",
                "_c10d_functional::wait_tensor",
                "_c10d_functional::_wrap_tensor_autograd"}
+
+
+_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """The ops run inside are ``name``'s: :class:`OpAnalysis` names the
+    storages they make ``"{name}/{op}"`` and keeps the most each held at
+    once (``scope_peaks``).  Outside a trace it only marks the stack."""
+    _SCOPES.append(name)
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -123,6 +142,8 @@ class OpAnalysis(TorchDispatchMode):
         self.peak_bytes = 0
         self._held: Dict[int, tuple] = {}     # id -> (bytes, made by)
         self.peak_holders: Dict[str, int] = {}
+        self._scope_live: Counter = Counter()
+        self.scope_peaks: Dict[str, int] = {}
         self._shadow = 0             # inside DTensor's shape inference
         self._restore = None
 
@@ -163,6 +184,10 @@ class OpAnalysis(TorchDispatchMode):
         n = st.nbytes()
         self._held[key] = (n, made_by)
         self.live_bytes += n
+        if "/" in made_by:
+            self._scope_live[made_by] += n
+            self.scope_peaks[made_by] = max(self.scope_peaks.get(made_by, 0),
+                                            self._scope_live[made_by])
         if self.live_bytes > self.peak_bytes:
             self.peak_bytes = self.live_bytes
             by: Counter = Counter()
@@ -172,7 +197,10 @@ class OpAnalysis(TorchDispatchMode):
         weakref.finalize(st, self._release, key)
 
     def _release(self, key: int) -> None:
-        self.live_bytes -= self._held.pop(key, (0, None))[0]
+        n, made_by = self._held.pop(key, (0, ""))
+        self.live_bytes -= n
+        if "/" in made_by:
+            self._scope_live[made_by] -= n
 
     @property
     def collective_bytes(self) -> int:
@@ -185,6 +213,7 @@ class OpAnalysis(TorchDispatchMode):
                 "launches": dict(self.launches),
                 "peak_bytes": self.peak_bytes,
                 "peak_holders": dict(self.peak_holders),
+                "scope_peaks": dict(self.scope_peaks),
                 "flops_by_op": {k: float(v)
                                 for k, v in self.flops_by_op.items()}}
 
@@ -215,6 +244,7 @@ class OpAnalysis(TorchDispatchMode):
                 or func.namespace == "prim"):
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.bytes += sum(_nbytes(t) for t in _tensors(out))
+        made_by = f"{_SCOPES[-1]}/{packet}" if _SCOPES else str(packet)
         for t in _tensors(out):
-            self._hold(t, str(packet))
+            self._hold(t, made_by)
         return out

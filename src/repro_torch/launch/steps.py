@@ -54,6 +54,7 @@ from ..optim.sgd import (MomentumState, momentum_sgd_init,
                          momentum_sgd_update, momentum_sgd_update_)
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .mesh import Mesh
+from .op_analysis import scope
 
 Params = Any
 Batch = Dict[str, torch.Tensor]
@@ -518,8 +519,11 @@ def _sharded_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
         with _sharded_forward(mesh, act):
             logits, cache = tf.prefill(
                 params, _shard_batch(cfg, shape, mesh, batch), cfg=cfg)
-        cache = shd.redistribute_tree(cache, mesh, shd.cache_shardings(
-            cfg, mesh, cache, shape.global_batch))
+        # the layers' leaves are laid out already, a layer at a time
+        # (``transformer.CacheStack``); this moves whisper's ``cross_kv``
+        with scope("cache"):
+            cache = shd.redistribute_tree(cache, mesh, shd.cache_shardings(
+                cfg, mesh, cache, shape.global_batch))
         return _logits_out(logits, mesh, shape), cache
 
     return _serve_bundle(prefill_step, mesh, cfg, shape)

@@ -31,7 +31,6 @@ k and v: its prefill expands it into per-head keys and values for
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -190,29 +189,49 @@ class _FlashAttention(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _attend_local(fn: Callable, q, k, v):
-    """``fn(q, k, v)`` on this rank's local heads: q, k, v ([B, S, H, D]
-    DTensors) are laid out with the batch over the data axes where it
+def _attend_local(fn: Callable, q, k, v, *, q_offset: int = 0,
+                  split_queries: bool = True):
+    """``fn(q, k, v, q_offset)`` on this rank's local heads: q, k, v ([B, S,
+    H, D] DTensors) are laid out with the batch over the data axes where it
     divides (``batch_spec_axes``) and the q heads over ``model``, and
     ``fn`` (the blockwise loop or the flash kernel) runs on the local
-    tensors.  Where both head counts divide the axis (``head_policy``)
-    the kv heads are split beside the q heads and the result is a DTensor
-    in the same layout; otherwise the heads are padded
-    (``_attend_padded``)."""
+    tensors, ``q_offset`` the absolute position of the first local query.
+    Where both head counts divide the axis (``head_policy``) the kv heads
+    are split beside the q heads and the result is a DTensor in the same
+    layout.  Otherwise the query positions are split with the heads
+    (``_attend_split``), or, with ``split_queries=False`` (the flash
+    kernel, which needs the whole sequence from position 0), the heads
+    are padded (``_attend_padded``)."""
     from torch.distributed.tensor import DTensor
     dm = q.device_mesh
     mesh = mesh_view(dm)
     m = mesh.shape.get("model", 1)
     if q.shape[2] % m or k.shape[2] % m:
-        return _attend_padded(fn, q, k, v, mesh)
+        if split_queries:
+            return _attend_split(fn, q, k, v, mesh, q_offset)
+        return _attend_padded(fn, q, k, v, mesh, q_offset)
     spec = P(batch_spec_axes(mesh, q.shape[0]), None, "model", None)
     local = [_ContiguousGrad.apply(t.redistribute(dm, placements(
         mesh, _fit_spec(mesh, spec, tuple(t.shape)))).to_local())
         for t in (q, k, v)]
     # contiguous: DTensor's views need a dense local tensor, and the
     # kernel's output is a transposed view
-    return DTensor.from_local(fn(*local).contiguous(), dm, placements(
-        mesh, _fit_spec(mesh, spec, tuple(q.shape))), run_check=False)
+    return DTensor.from_local(fn(*local, q_offset).contiguous(), dm,
+                              placements(mesh, _fit_spec(
+                                  mesh, spec, tuple(q.shape))),
+                              run_check=False)
+
+
+def query_split(h: int, m: int, r: int):
+    """(q heads, query chunk, chunks) of rank ``r`` of a ``model`` axis of
+    ``m`` when ``h`` q heads do not divide it: ``g = gcd(h, m)`` groups of
+    ``h / g`` heads and ``c = m / g`` chunks of the query positions, rank
+    ``r`` taking head group ``r % g`` and chunk ``r // g`` (the groups
+    minor: with ``c == 1`` this is the plain head split).  Every rank
+    computes ``h * Sq / m`` head-queries, and none a zero head."""
+    g = math.gcd(h, m)
+    hl = h // g
+    return range((r % g) * hl, (r % g + 1) * hl), r // g, m // g
 
 
 def local_heads(h: int, kvh: int, m: int, r: int):
@@ -237,17 +256,72 @@ def local_kv(kv_of) -> list:
     return list(kv_of)
 
 
-def _attend_padded(fn: Callable, q, k, v, mesh):
+def _attend_split(fn: Callable, q, k, v, mesh, q_offset: int):
     """``_attend_local`` where the head counts do not divide the ``model``
-    axis of ``m`` ranks, as GSPMD pads: the q heads are padded up to a
-    multiple of ``m`` with zero heads and split, ``ceil(H / m)`` a rank;
-    the kv heads, which do not divide, are replicated over ``model``, and
-    each rank takes those its heads read (``local_kv``).  The padded
-    heads' outputs are dropped, so their gradients are zero, and q's and
-    k's and v's gradients are partial sums over ``model`` of each rank's
-    heads.  The outputs are gathered over
-    ``model``: the result's heads are whole there (the layout
-    ``split_heads`` gives heads that do not divide)."""
+    axis of ``m`` ranks and ``fn`` runs the blockwise loop, as GSPMD
+    splits the group x query dim: each rank takes ``H / g`` q heads and
+    one of ``c`` chunks of the query positions (``query_split``), so
+    ``fn`` runs at ``q_offset`` plus its chunk's start, the causal mask at
+    absolute positions.  A length ``c`` does not divide is padded with
+    zero query rows, whose outputs are dropped.  The kv heads, which do
+    not divide, are replicated over ``model``, whole along the sequence,
+    and each rank takes those its heads read (``local_kv``).  Where the q
+    heads divide (``c == 1``) they are split as they are.  q's gradient
+    is each rank's (heads, chunk) block, and k's and v's are partial sums
+    over ``model``.  The blocks are gathered over ``model`` into the
+    whole-heads layout ``split_heads`` gives heads that do not divide."""
+    from torch.distributed.tensor import DTensor, Partial
+    dm = q.device_mesh
+    m = mesh.shape["model"]
+    b, sq, h, _ = q.shape
+    ba = batch_spec_axes(mesh, b)
+    whole = placements(mesh, _fit_spec(mesh, P(ba, None, None, None),
+                                       tuple(q.shape)))
+    mi = [n for n in mesh.axis_names if mesh.shape[n] > 1].index("model")
+    part = [Partial() if i == mi else pl for i, pl in enumerate(whole)]
+    heads, chunk, c = query_split(h, m, dm.get_local_rank("model"))
+    g, hl, cs = m // c, len(heads), -(-sq // c)
+    if c == 1:
+        ql = _ContiguousGrad.apply(q.redistribute(dm, placements(
+            mesh, _fit_spec(mesh, P(ba, None, "model", None),
+                            tuple(q.shape)))).to_local())
+    else:
+        qw = q.redistribute(dm, whole).to_local(grad_placements=part)
+        ql = _ContiguousGrad.apply(qw)[:, chunk * cs:(chunk + 1) * cs,
+                                       heads.start:heads.stop]
+        ql = torch.nn.functional.pad(ql, (0, 0, 0, 0, 0, cs - ql.shape[1]))
+    kv = [_ContiguousGrad.apply(t.redistribute(dm, whole).to_local(
+        grad_placements=part)) for t in (k, v)]
+    grp = h // k.shape[2]
+    idx = torch.tensor(local_kv([j // grp for j in heads]),
+                       device=kv[0].device)
+    out = fn(ql, *(t.index_select(2, idx) for t in kv),
+             q_offset + chunk * cs)
+    dv = out.shape[-1]
+    # rank r = chunk * g + group holds the block [B, cs, H / g, Dv]:
+    # gathered as [B, m, cs, H / g, Dv] and laid out as [B, c * cs, H, Dv]
+    blocks = DTensor.from_local(out.contiguous()[:, None], dm, placements(
+        mesh, _fit_spec(mesh, P(ba, "model", None, None, None),
+                        (b, m, cs, hl, dv))), run_check=False)
+    out = blocks.redistribute(dm, placements(mesh, _fit_spec(
+        mesh, P(ba, None, None, None, None), (b, m, cs, hl, dv)))).to_local()
+    out = out.reshape(out.shape[0], c, g, cs, hl, dv).permute(
+        0, 1, 3, 2, 4, 5).reshape(out.shape[0], c * cs, h, dv)[:, :sq]
+    return DTensor.from_local(out, dm, whole, run_check=False)
+
+
+def _attend_padded(fn: Callable, q, k, v, mesh, q_offset: int):
+    """``_attend_local`` where the head counts do not divide the ``model``
+    axis of ``m`` ranks and ``fn`` runs the flash kernel, which needs the
+    whole sequence from position 0 (``Sq == Skv``): the q heads are padded
+    up to a multiple of ``m`` with zero heads and split, ``ceil(H / m)`` a
+    rank; the kv heads, which do not divide, are replicated over
+    ``model``, and each rank takes those its heads read (``local_kv``).
+    The padded heads' outputs are dropped, so their gradients are zero,
+    and q's and k's and v's gradients are partial sums over ``model`` of
+    each rank's heads.  The outputs are gathered over ``model``: the
+    result's heads are whole there (the layout ``split_heads`` gives heads
+    that do not divide)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     dm = q.device_mesh
     m = mesh.shape["model"]
@@ -270,7 +344,7 @@ def _attend_padded(fn: Callable, q, k, v, mesh):
     kv = [_ContiguousGrad.apply(t.redistribute(dm, whole).to_local(
         grad_placements=part)) for t in (k, v)]
     idx = torch.tensor(local_kv(kv_of), device=kv[0].device)
-    out = fn(ql, *(t.index_select(2, idx) for t in kv)).contiguous()
+    out = fn(ql, *(t.index_select(2, idx) for t in kv), q_offset).contiguous()
     split = placements(mesh, _fit_spec(mesh, P(ba, None, "model", None),
                                        (q.shape[0], 1, m * hl, 1)))
     out = DTensor.from_local(out, dm, split, run_check=False)
@@ -284,17 +358,22 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, Sq, H, Dk]; k: [B, Skv, KVH, Dk]; v: [B, Skv, KVH, Dv].
     ``q_offset`` is the absolute position of q[0] for the causal mask."""
-    if is_dtensor(q):
-        return _attend_local(functools.partial(
-            blockwise_attention, causal=causal, q_offset=q_offset,
-            kv_block=kv_block, scale=scale), q, k, v)
     _, sq, _, dk = q.shape
     skv, dv = v.shape[1], v.shape[3]
+    # the reference's dispatch condition for the flash kernel
+    kernel = (_ATTN_IMPL == "pallas" and dk == dv and q_offset == 0
+              and sq == skv and sq % 16 == 0)
+    if is_dtensor(q):
+        def local(ql, kl, vl, offset):
+            return blockwise_attention(ql, kl, vl, causal=causal,
+                                       q_offset=offset, kv_block=kv_block,
+                                       scale=scale)
+        return _attend_local(local, q, k, v, q_offset=q_offset,
+                             split_queries=not kernel)
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
-    if (_ATTN_IMPL == "pallas" and dk == dv and q_offset == 0 and sq == skv
-            and sq % 16 == 0):
-        # the reference's dispatch condition; the kernel reads the
-        # [B, S, H, D] tensors through transposed views
+    if kernel:
+        # the kernel reads the [B, S, H, D] tensors through transposed
+        # views
         out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  scale=scale, block_q=min(128, sq),
@@ -380,8 +459,9 @@ class _CacheBlock:
     and the group its sequence is split over (None where it is whole).
     Decode splits the positions, not the heads, whatever the head counts:
     each rank attends every head of its block with the split softmax, as
-    the reference's cache rules lay the cache out, so the padded head
-    split of training and prefill (``_attend_padded``) does not apply."""
+    the reference's cache rules lay the cache out, so the head and query
+    splits of training and prefill (``_attend_split``, ``_attend_padded``)
+    do not apply."""
 
     def __init__(self, cache: torch.Tensor):
         from torch.distributed.tensor import Replicate, Shard
@@ -481,8 +561,9 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     into pieces that hold no whole number of heads (2 KV heads over a
     ``model`` axis of 4) is made whole along it first: DTensor cannot
     unflatten such a split.  ``_attend_local`` then splits the q heads
-    over ``model`` again, padded where they do not divide
-    (``_attend_padded``), and the kv heads stay whole there."""
+    over ``model`` again, with the query positions where they do not divide
+    (``_attend_split``; padded under the flash kernel, ``_attend_padded``),
+    and the kv heads stay whole there."""
     if is_dtensor(t):
         from torch.distributed.tensor import Shard
         pieces = math.prod(size for size, pl in zip(

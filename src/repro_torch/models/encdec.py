@@ -104,10 +104,10 @@ def cross_kv(cross: Params, enc_out: torch.Tensor, cfg: ModelConfig
         k = k + p["bk"][:, None, None]
         v = v + p["bv"][:, None, None]
     # heads that do not divide ``model`` are made whole first, as in the
-    # self-attention: in training the cross-attention splits its q heads
-    # over ``model`` (padded, ``attention._attend_padded``) and keeps these
-    # whole; decode reads them in ``cache_shardings``' layout (the frames
-    # over ``model``, every head)
+    # self-attention: in training and prefill the cross-attention splits
+    # its q heads and its queries over ``model`` (``attention.
+    # _attend_split``) and keeps these whole; decode reads them in
+    # ``cache_shardings``' layout (the frames over ``model``, every head)
     kvh = k.shape[-1] // cfg.head_dim
     return (attn.split_heads(k, kvh, cfg.head_dim),
             attn.split_heads(v, kvh, cfg.head_dim))
@@ -143,7 +143,7 @@ def _decoder_stack(params: Params, h: torch.Tensor, kv: CrossKV,
     remat = remat and torch.is_grad_enabled() and not collect_cache
     layers = tf._per_layer(params["layers"], cfg)
     cross = tf._unbind_layers(params["cross"], cfg.n_layers)
-    stacked: Optional[Dict[str, torch.Tensor]] = None
+    stacked = tf.CacheStack(cfg.n_layers)
     for i, (p, cp) in enumerate(zip(layers, cross)):
         if remat:
             h = checkpoint(_decoder_layer_h, p, cp, kv[0][i], kv[1][i], h,
@@ -151,12 +151,8 @@ def _decoder_stack(params: Params, h: torch.Tensor, kv: CrossKV,
             continue
         h, c = _decoder_layer(p, cp, kv[0][i], kv[1][i], h, cfg)
         if collect_cache:
-            if stacked is None:
-                stacked = {k: t.new_empty((cfg.n_layers,) + tuple(t.shape))
-                           for k, t in c.items()}
-            for k, t in c.items():
-                stacked[k][i] = t
-    return h, stacked
+            stacked.put(i, c)
+    return h, stacked.stacked() if collect_cache else None
 
 
 def decoder_embed(params: Params, tokens: torch.Tensor, start: int,

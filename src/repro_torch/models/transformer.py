@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..dist.policy import constrain
+from ..dist.sharding import to_cache_layout
 from . import attention as attn
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
@@ -290,8 +291,8 @@ def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
     # nothing to recompute when no graph is being recorded
     remat = remat and torch.is_grad_enabled() and not collect_cache
     gs = cfg.group_size
-    n_stack = cfg.n_layers if gs == 1 else cfg.n_groups
-    slots: List[Optional[Dict[str, torch.Tensor]]] = [None] * gs
+    slots = [CacheStack(cfg.n_layers if gs == 1 else cfg.n_groups)
+             for _ in range(gs)]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, layer_p in enumerate(_per_layer(params["layers"], cfg)):
         if remat:
@@ -301,23 +302,52 @@ def stack_forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *,
         else:
             h, c, a = layer_forward(layer_p, h, cfg, i)
             if collect_cache:
-                # one stacked buffer per leaf and slot, no stack copy (a
-                # sharded layer's DTensors are stacked once at the end)
-                s, g = i % gs, i // gs
-                if slots[s] is None:
-                    slots[s] = {k: [None] * n_stack if is_dtensor(t)
-                                else t.new_empty((n_stack,) + tuple(t.shape))
-                                for k, t in c.items()}
-                for k, t in c.items():
-                    slots[s][k][g] = t
+                slots[i % gs].put(i // gs, c)
         if a is not None:
             aux = aux + a
     cache = None
     if collect_cache:
-        slots = [{k: torch.stack(t) if isinstance(t, list) else t
-                  for k, t in slot.items()} for slot in slots]
+        slots = [slot.stacked() for slot in slots]
         cache = {"layers": slots[0] if gs == 1 else tuple(slots)}
     return h, cache, aux
+
+
+class CacheStack:
+    """One slot's cache leaves stacked ``[n, ...]`` as its layers yield
+    them, into one buffer per leaf made at the first layer (no stack
+    copy).  A sharded layer's leaf (a DTensor) goes in as this rank's
+    block of the cache's layout (``sharding.to_cache_layout``: one
+    all-to-all or a local slice a leaf), so the stacked leaf is a DTensor
+    laid out as ``cache_shardings`` lays it out, and no rank holds more of
+    the cache than its block.  The dry-run counts this under
+    ``op_analysis.scope("cache")``."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.bufs: Dict[str, torch.Tensor] = {}
+        self.like: Dict[str, torch.Tensor] = {}
+
+    def put(self, i: int, cache: Dict[str, torch.Tensor]) -> None:
+        from ..launch.op_analysis import scope
+        with scope("cache"):
+            for k, t in cache.items():
+                if is_dtensor(t):
+                    t = to_cache_layout(t, k)
+                    self.like[k] = t
+                    t = t.to_local()
+                if k not in self.bufs:
+                    self.bufs[k] = t.new_empty((self.n,) + tuple(t.shape))
+                self.bufs[k][i] = t
+
+    def stacked(self) -> Dict[str, torch.Tensor]:
+        from torch.distributed.tensor import DTensor, Shard
+        out = dict(self.bufs)
+        for k, t in self.like.items():
+            out[k] = DTensor.from_local(
+                out[k], t.device_mesh,
+                [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                 for p in t.placements], run_check=False)
+        return out
 
 
 def stack_decode(params: Params, h: torch.Tensor, cache: Params, pos: int,

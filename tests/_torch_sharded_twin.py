@@ -5,8 +5,9 @@ forced CPU devices, on the same mesh shapes, the same params and the same
 batches.
 
 A test file names its *plan*: the reduced configs it runs (with any cut of
-depth), the training cases ``(arch, mesh, case)`` and the serving runs
-``(arch, mesh, kind)``.  ``run_twins`` starts one JAX subprocess and one
+depth or heads; ``"arch:tag"`` names a second cut of ``arch``), the
+training cases ``(arch, mesh, case)`` and the serving runs ``(arch, mesh,
+kind)``.  ``run_twins`` starts one JAX subprocess and one
 4-rank world for the whole plan, at the same time, and returns their
 results as numpy arrays:
 
@@ -74,7 +75,7 @@ _COMMON = textwrap.dedent("""
     data = np.load(inp)
 
     def reduced(get_config, arch):
-        return dataclasses.replace(get_config(arch).reduced(),
+        return dataclasses.replace(get_config(arch.split(":")[0]).reduced(),
                                    **plan["cuts"].get(arch, {}))
 
     def batch_np(arch, n=None):
@@ -311,7 +312,7 @@ def _inputs(plan: dict) -> dict:
 
     out = {}
     for arch in plan["archs"]:
-        cfg = dataclasses.replace(get_config(arch).reduced(),
+        cfg = dataclasses.replace(get_config(arch.split(":")[0]).reduced(),
                                   **plan["cuts"].get(arch, {}))
         params = jax.jit(build_model(cfg, dtype=jnp.float32).init)(
             jax.random.key(0))

@@ -10,6 +10,11 @@ package's ``build_step`` on the same meshes
   frames (its ``cross_kv`` laid out by ``cache_shardings``, the frames
   over ``model``) and 3 decode steps that read ``cross_kv`` and never
   write it.
+* whisper-tiny cut to 2 q and 2 KV heads (``"whisper-tiny:2h"``) on ``(1,
+  4)``: fewer q heads than ranks, so the blockwise loop splits the query
+  positions with the heads (``g = 2``, ``c = 2``: one head and half the
+  queries a rank, in the encoder, the decoder and the cross-attention);
+  the same auto and MLfabric steps, prefill and decode.
 * ``kv_int8`` decode (the reference's ``build_decode_step(kv_int8=True)``)
   on qwen2-0.5b and granite-moe-1b-a400m: 3 steps from position 32 on a
   seeded int8 cache whose sequence is split over ``model``, the new
@@ -28,18 +33,22 @@ import pytest
 import _torch_sharded_twin as twin
 
 TRAIN = [("whisper-tiny", m, c) for m in ("2x2", "1x4")
-         for c in ("auto", "mlfabric")]
+         for c in ("auto", "mlfabric")] + [
+    ("whisper-tiny:2h", "1x4", c) for c in ("auto", "mlfabric")]
 SERVE = [("whisper-tiny", m, k) for m in ("2x2", "1x4")
          for k in ("prefill", "decode")] + [
     (a, m, "decode_q8") for a in ("qwen2-0.5b", "granite-moe-1b-a400m")
-    for m in ("2x2", "1x4")]
+    for m in ("2x2", "1x4")] + [
+    ("whisper-tiny:2h", "1x4", k) for k in ("prefill", "decode")]
+CUTS = {"whisper-tiny:2h": {"n_heads": 2, "n_kv_heads": 2}}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     return twin.run_twins(tmp_path_factory.mktemp("sharded_encdec"), {
-        "archs": ["whisper-tiny", "qwen2-0.5b", "granite-moe-1b-a400m"],
-        "cuts": {}, "train": TRAIN, "serve": SERVE})
+        "archs": ["whisper-tiny", "qwen2-0.5b", "granite-moe-1b-a400m",
+                  "whisper-tiny:2h"],
+        "cuts": CUTS, "train": TRAIN, "serve": SERVE})
 
 
 def test_ranks_agree(runs):

@@ -13,7 +13,8 @@ three meshes:
   1 KV head a rank;
 * ``(data=1, model=4)``: the 2 KV heads do not divide, so each rank
   attends its one q head against the replicated KV heads
-  (``models/attention.py:_attend_padded``);
+  (``models/attention.py:_attend_split``; the q heads divide, so no
+  query split);
 * ``(pod=2, data=1, model=2)``: the compressed MLfabric step (the int8
   wire runs across pods).
 
