@@ -55,10 +55,14 @@ toolkit.  Every line it prints is one JSON object:
    seconds, its FLOPs a rank held within ``DRYRUN_FLOPS_RATIO`` of the
    reference's (``DRYRUN_REF_FLOPS``: the reference's dry-run, written
    here as a constant) and its peak a rank below 80 GB; then, in the same
-   subprocess, the prediction of cell R's auto step's peak a rank on a
-   fake 4-rank world of its mesh (``sharded_prediction``); it is started
-   after ``elastic`` and read after ``reduced_family_parity`` (it traces
-   on the host's CPU beside the parity phases, which report no time).
+   subprocess, the predictions of cell R's auto step's peak a rank and
+   of cell S2's steps' on fake 4-rank worlds of their meshes
+   (``sharded_prediction``, ``family_predictions``), and ``DRYRUN_CELLS``
+   (whisper-tiny, stablelm-1.6b, deepseek-v2's ``train_4k`` FLOPs and
+   granite-moe's ``prefill_32k`` peak against the reference's); it is
+   started after the kernels' lines (``unfused_receive``) and read just
+   before cell R (it traces on one of the host's CPU cores beside the
+   card phases, which time the card, not the host).
    ``examples``: the five tensor twins of ``examples_torch/``
    (``async_vs_sync``, ``bounded_replication``, ``failover``,
    ``lda_topic_model``, ``serve_decode``) with their fast flags, each in
@@ -194,10 +198,14 @@ toolkit.  Every line it prints is one JSON object:
    full width against the unsharded runs on the card: S1, granite-moe
    whole, auto and MLfabric on ``(1, 2, 2)`` at seq 1,024 x batch 2
    (the MLfabric step launches ``grad_aggregate`` over ``data``); S2,
-   one deepseek-v2 layer on ``(1, 1, 4)``, the 4,096-token prefill and 3
-   decode steps at batch 16 on a latent cache split over ``model``; S3,
-   rwkv6 whole, the auto step on ``(1, 1, 4)``; params held beside
-   ``param_bytes_per_rank``, per-rank peaks, seconds per step.
+   one deepseek-v2 layer on ``(1, 1, 4)``: the donated auto step at seq
+   1,024 x batch 2 on the unsharded step's routing, each rank's peak
+   within ``SHARDED_PEAK_PRED_TOL`` of cell U's prediction (the compressed
+   step only where four ranks of it are predicted to fit the card), the
+   4,096-token prefill and 3 decode steps at batch 16 on a latent cache
+   split over ``model``; S3, rwkv6 at 12 of its 24 layers, the auto step
+   on ``(1, 1, 4)``; params held beside ``param_bytes_per_rank``,
+   per-rank peaks, seconds per step.
 32. ``deepseek_train`` (cell T): one deepseek-v2 layer at its published
    widths (5.02 B parameters with the embedding and head, bf16, seeded)
    trained through the donating call (``StepBundle.donating()``, the
@@ -4143,19 +4151,29 @@ def phase_sharded(pred: dict) -> dict:
 # --------------------------------------------------------------------------- #
 FAMILY_MESHES = {"2x2": ((1, 2, 2), ("pod", "data", "model")),
                  "1x4": ((1, 1, 4), ("pod", "data", "model"))}
-# the full-width parts: S1, S3 and S4 train (1 warm-up and
-# FAMILY_SHARDED_TIMED timed steps of each step), S2 serves; S4 is
-# whisper-tiny at train_4k's own seq, 6 heads over 4 ranks: 3 heads and
-# half the queries a rank (``attention._attend_split``)
+# the full-width parts train (1 warm-up and FAMILY_SHARDED_TIMED timed
+# steps of each step), S2 serves too; S4 is whisper-tiny at train_4k's
+# own seq, 6 heads over 4 ranks: 3 heads and half the queries a rank
+# (``attention._attend_split``); S2 (one deepseek-v2 layer) trains through
+# the donating call (``donate``: four ranks of its functional step do not
+# fit the card) with its first step's routing held to the unsharded
+# step's (``hold_routes``: ``RouteHold``)
 FAMILY_PARTS = {
     "S1": dict(arch="granite-moe-1b-a400m", layers=None, mesh="2x2",
                train=("auto", "mlfabric")),
-    "S2": dict(arch="deepseek-v2-236b", layers=1, mesh="1x4"),
-    "S3": dict(arch="rwkv6-1.6b", layers=None, mesh="1x4", train=("auto",)),
+    "S2": dict(arch="deepseek-v2-236b", layers=1, mesh="1x4",
+               train=("auto", "compressed"), donate=True, hold_routes=True),
+    "S3": dict(arch="rwkv6-1.6b", layers=12, mesh="1x4", train=("auto",)),
     "S4": dict(arch="whisper-tiny", layers=None, mesh="1x4",
                train=("auto", "compressed"), seq=4096),
 }
-FAMILY_TRAIN_PARTS = ("S1", "S3", "S4")
+FAMILY_TRAIN_PARTS = ("S1", "S2", "S3", "S4")
+# the parts whose steps cell U's dry-run predicts on a fake 4-rank world of
+# their mesh (``family_predictions``): a step runs only where its four
+# ranks' predicted peaks and CUDA contexts fit DS_FIT_BYTES, and each
+# rank's first-step peak is held within SHARDED_PEAK_PRED_TOL of it
+FAMILY_PREDICTED = ("S2",)
+CUDA_CONTEXT_BYTES = 1e9         # an allowance a process, beside its peak
 FAMILY_SHARDED_SEQ = 1024        # train_4k's seq 4096, cut to 1,024
 FAMILY_SHARDED_TIMED = 1
 FAMILY_SHARDED_PREFILL = 4096    # cell M's prefill, at batch 1
@@ -4175,9 +4193,10 @@ FAMILY_REDUCED_CUTS = {"jamba-v0.1-52b": {"n_layers": 4,
 FAMILY_REDUCED_MESHES = {"whisper-tiny:2h": ("1x4",)}
 FAMILY_REDUCED_TOL = 1e-4
 FAMILY_SHARDED_CUTS = [
-    "S1 granite-moe-1b-a400m and S3 rwkv6-1.6b whole, at train_4k's seq "
-    "4,096 x global batch 256 cut to 1,024 x 2; 1 warm-up and 1 timed "
-    "step of each step",
+    "S1 granite-moe-1b-a400m whole, S2's one deepseek-v2-236b layer and "
+    "S3 rwkv6-1.6b cut to 12 of its 24 layers (the script's time limit), "
+    "at train_4k's seq 4,096 x global batch 256 cut to 1,024 x 2; 1 "
+    "warm-up and 1 timed step of each step",
     "S2 deepseek-v2-236b: 1 of 60 layers at its published widths (cell "
     "M's); prefill 4,096 tokens at batch 1; decode_32k at batch 16, not "
     "128, 3 steps at its last positions",
@@ -4329,12 +4348,14 @@ def compare_sample(tree, specs, mesh, ref: list, tol: float,
             "sums_close": sums <= tol, "sums_skipped": skipped}
 
 
-def sharded_families_reference(out_dir: str) -> dict:
+def sharded_families_reference(out_dir: str, plan: dict) -> dict:
     """Cell S's unsharded runs on this process's world of one, from the
-    ranks' seeds: S1's, S3's and S4's steps (the MLfabric step with
+    ranks' seeds: the steps ``plan`` names a part (the MLfabric step with
     ``overlap_chunks=2``, each of the two rows its own loss and aux loss,
-    as the two data ranks take them), S2's prefill and decode; written to
-    ``out_dir`` for the ranks."""
+    as the two data ranks take them; a ``donate`` part's through its
+    donating call, from fresh params each; a ``hold_routes`` part's
+    routing recorded), S2's prefill and decode; written to ``out_dir``
+    for the ranks."""
     import torch
     from repro_torch.launch import build_step, make_host_mesh
     from repro_torch.optim import momentum_sgd_init
@@ -4344,18 +4365,28 @@ def sharded_families_reference(out_dir: str) -> dict:
     shapes = family_shapes()
     t0 = time.perf_counter()
     for part in FAMILY_TRAIN_PARTS:
+        spec = FAMILY_PARTS[part]
         cfg, params = family_part_params(part, dev)
         shape = family_shapes(part)["train"]
         batches = family_train_batches(cfg, dev, shape.seq_len)
-        for name in FAMILY_PARTS[part]["train"]:
+        for i, name in enumerate(plan[part]):
             kw = dict(SHARDED_TRAIN[name])
             if name == "mlfabric":
                 kw["overlap_chunks"] = STEP_BATCH
             step = build_step(cfg, shape, mesh, lr=STEP_LR,
                               gamma=STEP_GAMMA, remat=True, **kw)
-            p, _, m = step.fn(params, momentum_sgd_init(params), batches[0])
+            if spec.get("donate") and i:    # the last step took them
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+                cfg, params = family_part_params(part, dev)
+            run = step.donating() if spec.get("donate") else step.fn
+            with RouteHold() as hold:
+                p, _, m = run(params, momentum_sgd_init(params), batches[0])
             torch.save({"loss": float(m["loss"]),
-                        "sample": sample_leaves(p)},
+                        "sample": sample_leaves(p),
+                        "routes": ([c.cpu() for c in hold.calls]
+                                   if spec.get("hold_routes") else None)},
                        f"{out_dir}/{part}_{name}.pt")
             del p, m, step
         del params, batches
@@ -4433,10 +4464,12 @@ def _held_bytes(tree) -> int:
                for t in tree_leaves(tree))
 
 
-def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
-    """S1, S3 or S4 in a rank: each step from the same params, 1 warm-up and
-    ``FAMILY_SHARDED_TIMED`` timed steps, the first against the
-    reference's sample."""
+def family_sharded_train(ref_dir: str, part: str, mesh, names) -> dict:
+    """A part's steps ``names`` in a rank: each step from the same params,
+    1 warm-up and ``FAMILY_SHARDED_TIMED`` timed steps, the first against
+    the reference's sample (a ``donate`` part's through the donating call;
+    a ``hold_routes`` part's first step taking the reference's routing,
+    the later ones their own)."""
     import torch
     from repro_torch.dist import sharding as shd
     from repro_torch.launch import build_step
@@ -4444,11 +4477,13 @@ def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
     from repro_torch.tree import tree_leaves
 
     dev = mesh.device
-    names = FAMILY_PARTS[part]["train"]
+    spec = FAMILY_PARTS[part]
     cfg, trees, predicted = _sharded_part(part, mesh, names)
+    first_tree = trees[names[0]][0]
     res = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "param_bytes_predicted": predicted,
-           "param_bytes_held": _held_bytes(trees["auto"][0])}
+           "param_bytes_held": _held_bytes(first_tree)}
+    del first_tree
     shape = family_shapes(part)["train"]
     res["seq_len"] = shape.seq_len
     batches = family_train_batches(cfg, dev, shape.seq_len)
@@ -4457,33 +4492,43 @@ def family_sharded_train(ref_dir: str, part: str, mesh) -> dict:
         o = momentum_sgd_init(p)
         step = build_step(cfg, shape, mesh, lr=STEP_LR,
                           gamma=STEP_GAMMA, remat=True, **SHARDED_TRAIN[name])
+        run = step.donating() if spec.get("donate") else step.fn
         ref = torch.load(f"{ref_dir}/{part}_{name}.pt")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         at_start = torch.cuda.memory_allocated(dev)
         zero_launches()
         losses, secs = [], []
-        for i, b in enumerate(batches):
-            t0 = time.perf_counter()
-            p, o, m = step.fn(p, o, b)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            losses.append(float(m["loss"]))
-            if i == 0:
-                first_peak = torch.cuda.max_memory_allocated(dev)
-                first = compare_sample(p, sp, mesh, ref["sample"],
-                                       SHARDED_BF16_TOL,
-                                       zero_grad_leaves(cfg))
-                first["placements_kept"] = all(
-                    tuple(a.placements) == tuple(shd.placements(mesh, s))
-                    for a, s in zip(tree_leaves(p), tree_leaves(sp)))
+        with RouteHold() as hold:
+            if spec.get("hold_routes"):
+                hold.replay([c.to(dev) for c in ref["routes"]])
+            for i, b in enumerate(batches):
+                t0 = time.perf_counter()
+                p, o, m = run(p, o, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    first_peak = torch.cuda.max_memory_allocated(dev)
+                    held = not hold.plan   # every recorded call taken
+                    hold.record()          # later steps route freely
+                    first = compare_sample(p, sp, mesh, ref["sample"],
+                                           SHARDED_BF16_TOL,
+                                           zero_grad_leaves(cfg))
+                    first["placements_kept"] = all(
+                        tuple(a.placements) == tuple(shd.placements(mesh, s))
+                        for a, s in zip(tree_leaves(p), tree_leaves(sp)))
         res[name] = {**first, "loss_ref": ref["loss"], "losses": losses,
+                     "routes_held": bool(spec.get("hold_routes")),
+                     "routes_all_replayed": held,
                      "warmup_s": secs[0], "step_s": secs[1:],
                      "s_per_step": sum(secs[1:]) / FAMILY_SHARDED_TIMED,
                      "launches": ops_launches(),
+                     "allocated_at_start": at_start,
+                     "first_step_peak": first_peak,
                      "max_memory_allocated":
                          torch.cuda.max_memory_allocated(dev)}
-        del p, o, step, ref
+        del p, o, step, run, ref
         gc.collect()
         torch.cuda.empty_cache()
     return res
@@ -4723,8 +4768,8 @@ def family_sharded_reduced(meshes: dict, cpu_meshes: dict) -> dict:
 def sharded_family_rank(ref_dir: str) -> None:
     """One rank of cell S's world (four gloo processes on the one card,
     DTensor's collectives staged through the host): the reduced part
-    first, then S1-S4 against the unsharded runs in ``ref_dir``.  Prints
-    one JSON line."""
+    first, then S1-S4 against the unsharded runs in ``ref_dir`` (the steps
+    its ``plan.json`` names a part).  Prints one JSON line."""
     import torch
     from repro_torch.launch import init_rank, make_mesh
 
@@ -4736,6 +4781,8 @@ def sharded_family_rank(ref_dir: str) -> None:
     meshes = {k: make_mesh(*m, device=dev) for k, m in FAMILY_MESHES.items()}
     cpu_meshes = {k: make_mesh(*m, device="cpu")
                   for k, m in FAMILY_MESHES.items()}
+    with open(f"{ref_dir}/plan.json") as f:
+        plan = json.load(f)
     res = {"rank": rank}
     t0 = time.perf_counter()
     res["reduced_families"] = family_sharded_reduced(meshes, cpu_meshes)
@@ -4743,13 +4790,41 @@ def sharded_family_rank(ref_dir: str) -> None:
     for part in FAMILY_PARTS:
         t0 = time.perf_counter()
         mesh = meshes[FAMILY_PARTS[part]["mesh"]]
-        res[part] = (family_sharded_serve(ref_dir, mesh) if part == "S2"
-                     else family_sharded_train(ref_dir, part, mesh))
+        res[part] = {}
+        if part == "S2":
+            res[part] = family_sharded_serve(ref_dir, mesh)
+        if plan.get(part):
+            res[part]["train"] = family_sharded_train(ref_dir, part, mesh,
+                                                      plan[part])
         res[part]["s"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)
 
 
-def phase_sharded_families() -> dict:
+def family_train_plan(preds: dict) -> tuple:
+    """The steps each part trains: all of its own, but a
+    ``FAMILY_PREDICTED`` part's step whose four ranks' predicted peaks
+    (``preds``, cell U's) and CUDA contexts, beside this process's
+    context, do not fit ``DS_FIT_BYTES``; and those left out, each with
+    its prediction."""
+    plan, left = {}, {}
+    for part in FAMILY_TRAIN_PARTS:
+        plan[part] = []
+        for name in FAMILY_PARTS[part]["train"]:
+            pred = preds.get(f"{part}/{name}")
+            need = (None if pred is None else
+                    4 * (pred["peak_bytes"] + CUDA_CONTEXT_BYTES)
+                    + CUDA_CONTEXT_BYTES)
+            if need is not None and need > DS_FIT_BYTES:
+                left[f"{part}/{name}"] = {
+                    "predicted_peak_a_rank": pred["peak_bytes"],
+                    "predicted_card_bytes": need,
+                    "fit_bytes": DS_FIT_BYTES}
+            else:
+                plan[part].append(name)
+    return plan, left
+
+
+def phase_sharded_families(preds: dict) -> dict:
     """Cell S: granite-moe, deepseek-v2, jamba, rwkv6 and whisper on a
     ``model`` axis, on a world of four gloo processes sharing the one card
     (``sharded_family_rank``).  First the reduced families in f32, card
@@ -4761,10 +4836,15 @@ def phase_sharded_families() -> dict:
     S1, granite-moe whole, auto and MLfabric on ``(1, 2, 2)`` at seq 1,024
     x batch 2 (loss and sampled params within ``SHARDED_BF16_TOL``; the
     MLfabric step reduces over ``data``, launching ``grad_aggregate``);
-    S2, one deepseek-v2 layer on ``(1, 1, 4)``: the 4,096-token prefill
-    and 3 decode steps at batch 16 on a latent cache split over
+    S2, one deepseek-v2 layer on ``(1, 1, 4)``: the donated auto step at
+    seq 1,024 x batch 2, its first step on the unsharded step's routing
+    (each rank's first-step peak within ``SHARDED_PEAK_PRED_TOL`` of
+    ``preds``, cell U's prediction; the compressed step only where
+    ``family_train_plan`` fits it on the card), then the 4,096-token
+    prefill and 3 decode steps at batch 16 on a latent cache split over
     ``model`` (logits and written rows within ``BF16_PREFILL_TOL`` of the
-    largest value); S3, rwkv6 whole, the auto step on ``(1, 1, 4)``; S4,
+    largest value); S3, rwkv6 at 12 of 24 layers, the auto step on ``(1,
+    1, 4)``; S4,
     whisper-tiny whole, the auto and the compressed MLfabric step on ``(1,
     1, 4)`` at seq 4,096 x batch 2 (its 6 heads over 4 ranks: the query
     split at full width; the compressed step launches ``quantize`` and
@@ -4778,9 +4858,12 @@ def phase_sharded_families() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    plan, left = family_train_plan(preds)
     ref_dir = tempfile.mkdtemp(prefix="sharded_families_")
     try:
-        ref = sharded_families_reference(ref_dir)
+        with open(f"{ref_dir}/plan.json", "w") as f:
+            json.dump(plan, f)
+        ref = sharded_families_reference(ref_dir, plan)
         root = str(Path(__file__).resolve().parent)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(Path(root) / "src"), root]), OMP_NUM_THREADS="1")
@@ -4793,21 +4876,26 @@ def phase_sharded_families() -> dict:
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    smi = nvidia_smi_line()
     emit({"phase": "sharded_families", "cell": "S",
           "world": "4 gloo processes on one card, DTensor collectives "
           "staged through the host", "meshes": FAMILY_MESHES,
-          "nvidia_smi": nvidia_smi_line(), "reduced": FAMILY_SHARDED_CUTS,
+          "nvidia_smi": smi, "reduced": FAMILY_SHARDED_CUTS,
           "limits": {"train_bf16": SHARDED_BF16_TOL,
                      "serve_bf16": BF16_PREFILL_TOL,
-                     "reduced_f32": FAMILY_REDUCED_TOL},
+                     "reduced_f32": FAMILY_REDUCED_TOL,
+                     "peak_vs_prediction": SHARDED_PEAK_PRED_TOL},
+          "trained": plan, "not_run": left,
           "world_s": world_s, "phase_s": time.perf_counter() - t_phase,
           **ref, "ranks": res})
-    return sharded_families_checks(res)
+    return sharded_families_checks(res, plan, preds, smi)
 
 
-def sharded_families_checks(res: list) -> dict:
-    """Cell S's checks on the ranks' results; returns the launches of
-    S1-S4 summed over the ranks."""
+def sharded_families_checks(res: list, plan: dict, preds: dict,
+                            smi: str) -> dict:
+    """Cell S's checks on the ranks' results (the steps of ``plan``; a
+    ``FAMILY_PREDICTED`` part's first-step peaks against ``preds``, each
+    printed); returns the launches of S1-S4 summed over the ranks."""
     totals = dict.fromkeys(KERNELS, 0)
     for r in res:
         who = f"sharded_families rank {r['rank']}"
@@ -4820,13 +4908,15 @@ def sharded_families_checks(res: list) -> dict:
                 check(runs["flash_launches"] > 0,
                       f"{who} reduced {key}: the prefill launched no flash")
         for part in FAMILY_PARTS:
-            v = r[part]
-            check(v["param_bytes_held"] == v["param_bytes_predicted"],
-                  f"{who} {part}: holds {v['param_bytes_held']} param bytes, "
-                  f"param_shardings predicts {v['param_bytes_predicted']}")
+            for v in (([r[part]] if part == "S2" else [])
+                      + ([r[part]["train"]] if plan.get(part) else [])):
+                check(v["param_bytes_held"] == v["param_bytes_predicted"],
+                      f"{who} {part}: holds {v['param_bytes_held']} param "
+                      f"bytes, param_shardings predicts "
+                      f"{v['param_bytes_predicted']}")
         for part in FAMILY_TRAIN_PARTS:
-            for name in FAMILY_PARTS[part]["train"]:
-                t = r[part][name]
+            for name in plan[part]:
+                t = r[part]["train"][name]
                 check(all(math.isfinite(l) for l in t["losses"]),
                       f"{who} {part} {name}: non-finite loss")
                 check(abs(t["losses"][0] - t["loss_ref"])
@@ -4834,15 +4924,28 @@ def sharded_families_checks(res: list) -> dict:
                       f"{who} {part} {name}: loss {t['losses'][0]} vs "
                       f"{t['loss_ref']}")
                 check(t["sample_close"] and t["sums_close"]
-                      and t["placements_kept"] and t["sample_held"] > 0,
+                      and t["placements_kept"] and t["sample_held"] > 0
+                      and t["routes_all_replayed"],
                       f"{who} {part} {name}: params {t}")
+                pred = preds.get(f"{part}/{name}")
+                if pred is not None:
+                    emit({"phase": "sharded_families", "check": "peak",
+                          "part": part, "step": name, "rank": r["rank"],
+                          "nvidia_smi": smi,
+                          "prediction_trace_s": pred["trace_s"],
+                          "predicted_peak_holders": pred["peak_holders"],
+                          "s_per_step": t["s_per_step"],
+                          **peak_against_prediction(
+                              f"{who} {part} {name}", t["first_step_peak"],
+                              t["allocated_at_start"], pred,
+                              tol=SHARDED_PEAK_PRED_TOL)})
                 for k in KERNELS:
                     totals[k] += t["launches"][k]
-        launched = r["S1"]["mlfabric"]["launches"]
+        launched = r["S1"]["train"]["mlfabric"]["launches"]
         check(launched["grad_aggregate"] > 0,
               f"{who}: S1's MLfabric step launched no grad_aggregate: "
               f"{launched}")
-        launched = r["S4"]["compressed"]["launches"]
+        launched = r["S4"]["train"]["compressed"]["launches"]
         check(launched["quantize"] > 0 and launched["dequant_aggregate"] > 0,
               f"{who}: S4's compressed step launched no wire kernel: "
               f"{launched}")
@@ -5247,12 +5350,19 @@ DRYRUN_FLOPS_RATIO = 1.2
 # queries a rank, ``attention._attend_split``) held within
 # DRYRUN_FLOPS_RATIO of the reference's FLOPs a rank, and stablelm-1.6b's
 # 32k prefill (its cache laid out a layer at a time, one all-to-all a
-# leaf) within DRYRUN_PEAK_RATIO of the reference's peak a rank; the
+# leaf) within DRYRUN_PEAK_RATIO of the reference's peak a rank;
+# deepseek-v2's train_4k (the router on each rank's own tokens, the q
+# latent's gradient on each rank's block of its columns) within its own
+# ``flops_ratio``, and granite-moe's 32k prefill (the experts' one-hots of
+# a rank's own groups and experts) within DRYRUN_PEAK_RATIO; the
 # reference's numbers from its dry-run as DRYRUN_REF_FLOPS's
 DRYRUN_CELLS = {
     ("whisper-tiny", "train_4k"): {"flops": 1851360313344.0},
     ("whisper-tiny", "prefill_32k"): {"flops": 946953756672.0},
     ("stablelm-1.6b", "prefill_32k"): {"peak": 1936736848},
+    ("deepseek-v2-236b", "train_4k"): {"flops": 1149148027944960.0,
+                                       "flops_ratio": 1.05},
+    ("granite-moe-1b-a400m", "prefill_32k"): {"peak": 650155048},
 }
 DRYRUN_PEAK_RATIO = 2.0
 DS_ARCH, DS_LAYERS = "deepseek-v2-236b", 1   # cell T: cell S2's part
@@ -5341,6 +5451,31 @@ def sharded_prediction(out_dir: str) -> None:
         json.dump(r, f)
 
 
+def family_predictions(out_dir: str) -> None:
+    """The dry-run's predictions of the steps of ``FAMILY_PREDICTED``'s
+    parts (``analyze_step`` of each step's ``fn``, as
+    ``family_sharded_train`` calls it) as rank 0 of a fake world of four
+    ranks on the part's mesh, each written to ``out_dir``."""
+    from repro_torch.launch import build_step, make_mesh
+    from repro_torch.launch.dryrun import analyze_step, fake_world, \
+        trace_device
+    fake_world(4)
+    for part in FAMILY_PREDICTED:
+        spec = FAMILY_PARTS[part]
+        mesh = make_mesh(*FAMILY_MESHES[spec["mesh"]], device=trace_device())
+        cfg, shape = family_part_config(part), family_shapes(part)["train"]
+        for name in spec["train"]:
+            kw = SHARDED_TRAIN[name]
+            bundle = build_step(cfg, shape, mesh, lr=STEP_LR,
+                                gamma=STEP_GAMMA, remat=True, **kw)
+            r = analyze_step(bundle, cfg, shape, mesh,
+                             kw.get("grad_path", "auto"),
+                             donate=spec.get("donate", False))
+            with open(os.path.join(out_dir, f"{part}_{name}.json"),
+                      "w") as f:
+                json.dump(r, f)
+
+
 def dryrun_cells(out_dir: str) -> None:
     """``DRYRUN_CELLS`` through ``dryrun.run_cell`` on 16x16, each written
     to ``out_dir``."""
@@ -5351,7 +5486,8 @@ def dryrun_cells(out_dir: str) -> None:
 
 def start_dryrun() -> tuple:
     """Cell U, started: the dry-run CLI on one production cell, then the
-    prediction of cell R's auto step (``sharded_prediction``) and
+    predictions of cell R's auto step (``sharded_prediction``) and of cell
+    S's ``FAMILY_PREDICTED`` steps (``family_predictions``), and
     ``DRYRUN_CELLS``, in one subprocess (this card's torch, on the host's
     CPU while the card runs other phases, which report no time); returns
     the running cell for ``finish_dryrun``.  The subprocess is killed at
@@ -5363,7 +5499,7 @@ def start_dryrun() -> tuple:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(root / "src"), str(root)]))
+        [str(root / "src"), str(root)]), OMP_NUM_THREADS="1")
     code = ("import sys, chip_smoke\n"
             "from repro_torch.launch import dryrun\n"
             "arch, shape, out = sys.argv[1:4]\n"
@@ -5371,6 +5507,7 @@ def start_dryrun() -> tuple:
             " '--out', out]\n"
             "rc = dryrun.main()\n"
             "chip_smoke.sharded_prediction(out)\n"
+            "chip_smoke.family_predictions(out)\n"
             "chip_smoke.dryrun_cells(out)\n"
             "sys.exit(rc)\n")
     t0 = time.perf_counter()
@@ -5452,8 +5589,9 @@ def finish_examples(procs: dict) -> dict:
 def finish_dryrun(cell: tuple) -> dict:
     """Cell U's result: read, printed and checked (its FLOPs a rank within
     ``DRYRUN_FLOPS_RATIO`` of the reference's, its peak a rank below the
-    card; ``DRYRUN_CELLS`` within their bounds); returns the prediction of
-    cell R's auto step."""
+    card; ``DRYRUN_CELLS`` within their bounds); returns the predictions:
+    cell R's auto step (``"sharded/auto"``) and each step of a
+    ``FAMILY_PREDICTED`` part (``"{part}/{step}"``)."""
     import shutil
     import torch
 
@@ -5472,6 +5610,11 @@ def finish_dryrun(cell: tuple) -> dict:
         res = json.load(f)
     with open(os.path.join(out_dir, "sharded_auto.json")) as f:
         pred = json.load(f)
+    preds = {"sharded/auto": pred}
+    for part in FAMILY_PREDICTED:
+        for name in FAMILY_PARTS[part]["train"]:
+            with open(os.path.join(out_dir, f"{part}_{name}.json")) as f:
+                preds[f"{part}/{name}"] = json.load(f)
     cells = {}
     for a, sh in DRYRUN_CELLS:
         with open(os.path.join(out_dir, f"{a}__{sh}__16-16.json")) as f:
@@ -5495,6 +5638,17 @@ def finish_dryrun(cell: tuple) -> dict:
           "argument_bytes": pred["argument_bytes"],
           "peak_holders": pred["peak_holders"], "flops": pred["flops"],
           "trace_s": pred["trace_s"]})
+    for key, p in preds.items():
+        if key == "sharded/auto":
+            continue
+        part = key.split("/")[0]
+        emit({"phase": "dryrun", "prediction": key,
+              "mesh": FAMILY_MESHES[FAMILY_PARTS[part]["mesh"]],
+              "donated": bool(FAMILY_PARTS[part].get("donate")),
+              "peak_bytes": p["peak_bytes"],
+              "argument_bytes": p["argument_bytes"],
+              "peak_holders": p["peak_holders"], "flops": p["flops"],
+              "launches": p["launches"], "trace_s": p["trace_s"]})
     check(res["status"] == "ok" and res["n_devices"] == 256,
           f"dryrun {arch} {shape}: {res['status']}")
     check(res["trace_device"].startswith("cuda"),
@@ -5525,14 +5679,16 @@ def finish_dryrun(cell: tuple) -> dict:
         check(r["status"] == "ok" and r["trace_device"].startswith("cuda"),
               f"dryrun {a} {sh}: {r['status']} on {r.get('trace_device')}")
         if "flops" in ref:
-            check(r["flops_per_device"] <= DRYRUN_FLOPS_RATIO * ref["flops"],
+            ratio = ref.get("flops_ratio", DRYRUN_FLOPS_RATIO)
+            check(r["flops_per_device"] <= ratio * ref["flops"],
                   f"dryrun {a} {sh}: {r['flops_per_device']} FLOPs a rank "
-                  f"against the reference's {ref['flops']}")
+                  f"against the reference's {ref['flops']} (limit "
+                  f"{ratio}x)")
         if "peak" in ref:
             check(m["peak_bytes"] <= DRYRUN_PEAK_RATIO * ref["peak"],
                   f"dryrun {a} {sh}: peak {m['peak_bytes']} a rank against "
                   f"the reference's {ref['peak']}")
-    return pred
+    return preds
 
 
 def peak_against_prediction(what: str, peak: int, at_start: int,
@@ -5775,6 +5931,8 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     unfused_launches = phase_unfused_receive()
+    # cell U traces on the host's CPU from here until cell R reads it
+    dryrun_cell = start_dryrun()
     phase_reduced_parity()
     launches = phase_main_path()
     phase_reduced_step_parity()
@@ -5787,7 +5945,6 @@ def main() -> int:
     train_launches = phase_train()
     pod_launches = phase_pod_async()
     elastic_launches = phase_elastic()
-    dryrun_cell = start_dryrun()
     examples = start_examples()
     phase_reduced_ps_parity()
     phase_mlfabric_ranks()
@@ -5802,8 +5959,9 @@ def main() -> int:
                        for a in SERVE_CELLS}
     family_launches["whisper_train"] = phase_whisper_train()
     family_launches["rwkv_train"] = phase_rwkv_train()
-    family_launches["sharded"] = phase_sharded(finish_dryrun(dryrun_cell))
-    family_launches["sharded_families"] = phase_sharded_families()
+    dryrun_preds = finish_dryrun(dryrun_cell)
+    family_launches["sharded"] = phase_sharded(dryrun_preds["sharded/auto"])
+    family_launches["sharded_families"] = phase_sharded_families(dryrun_preds)
     family_launches["deepseek_train"] = phase_deepseek_train(preds)
     import torch.distributed as dist
     dist.destroy_process_group()

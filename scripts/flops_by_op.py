@@ -16,10 +16,15 @@ Usage:
     PYTHONPATH=src python scripts/flops_by_op.py --arch qwen2-0.5b \\
         --shape prefill_32k --reduced --set n_heads=14 n_kv_heads=2 \\
         d_head=32 d_model=512 d_ff=1024 vocab_size=4096 --impl pallas
+    PYTHONPATH=src python scripts/flops_by_op.py --arch deepseek-v2-236b \\
+        --shape train_4k --reduced --set n_heads=16 n_kv_heads=16 \\
+        d_model=512 vocab_size=4096 moe.n_experts=16 \\
+        mla.kv_lora_rank=64 mla.q_lora_rank=256
 
 ``--reduced`` and ``--set`` trace a cut of the config (the reduced one,
-then the given fields), as ``tests/test_torch_dryrun.py`` cuts it;
-``--impl`` picks the attention impl.
+then the given fields), as ``tests/test_torch_dryrun.py`` cuts it; a
+dotted field sets a sub-config's (``moe.n_experts=16``,
+``mla.q_lora_rank=256``).  ``--impl`` picks the attention impl.
 
 Prints ``port`` lines (FLOPs, op, operand shapes), ``reference`` lines
 (FLOPs, output, operand shapes, executions) and each side's total.
@@ -50,12 +55,27 @@ def _dims(s: str) -> Tuple[int, ...]:
     return tuple(int(d) for d in s.split(",") if d)
 
 
+def cut_config(cfg, cut: Dict[str, int]):
+    """``cfg`` with the fields of ``cut`` replaced; a dotted name
+    (``moe.n_experts``) replaces a field of that sub-config."""
+    import dataclasses
+
+    top, sub = {}, {}
+    for k, v in (cut or {}).items():
+        if "." in k:
+            name, field = k.split(".", 1)
+            sub.setdefault(name, {})[field] = v
+        else:
+            top[k] = v
+    for name, fields in sub.items():
+        top[name] = dataclasses.replace(getattr(cfg, name), **fields)
+    return dataclasses.replace(cfg, **top)
+
+
 def port_flops(arch: str, shape: str, *, reduced: bool = False,
                cut: Dict[str, int] = None, impl: str = "blockwise"
                ) -> Tuple[float, Counter]:
     """(total, FLOPs by "op operand-shapes") of the port's cell."""
-    import dataclasses
-
     import torch
 
     from repro_torch.launch import dryrun
@@ -63,8 +83,7 @@ def port_flops(arch: str, shape: str, *, reduced: bool = False,
     from repro_torch.models import attention
 
     cfg = dryrun.get_config(arch)
-    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              **(cut or {}))
+    cfg = cut_config(cfg.reduced() if reduced else cfg, cut)
     dryrun.get_config = lambda name: cfg
     attention.set_attention_impl(impl)
 

@@ -369,13 +369,18 @@ def shard_tensor(t, mesh, spec: PartitionSpec):
     """A DTensor on ``mesh.device_mesh`` laid out by ``spec``, made from
     ``t``, the whole tensor (or a numpy array), present on every rank:
     each rank keeps its own block (:func:`shard_slices`) on
-    ``mesh.device``, with no collective."""
+    ``mesh.device``, with no collective.  The block owns its storage: a
+    view would keep all of ``t`` alive."""
     import torch
     from torch.distributed.tensor import DTensor
     block = t[shard_slices(mesh, spec, tuple(t.shape), mesh.coords)]
     if not isinstance(block, torch.Tensor):
         block = torch.from_numpy(block.copy())
-    return DTensor.from_local(block.contiguous().to(mesh.device),
+    block = block.contiguous().to(mesh.device)
+    if isinstance(t, torch.Tensor) and (block.untyped_storage()._cdata
+                                        == t.untyped_storage()._cdata):
+        block = block.clone()
+    return DTensor.from_local(block,
                               mesh.device_mesh, placements(mesh, spec),
                               run_check=False)
 

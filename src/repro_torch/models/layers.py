@@ -345,15 +345,27 @@ def whole_rows(t: torch.Tensor) -> torch.Tensor:
 class _WholeRowsGrad(torch.autograd.Function):
     """The identity, whose backward makes the gradient's rows whole: the
     gradient a projection gets back from the sequence-parallel residual is
-    split along the sequence, and its matmul's backward flattens it."""
+    split along the sequence, and its matmul's backward flattens it.  Where
+    the output is split along its last dim (a projection's block of
+    columns), the gradient is laid out so too: a partial sum is
+    reduce-scattered, a whole one sliced, and the projection's backward
+    multiplies only its block of the columns, as GSPMD partitions it."""
 
     @staticmethod
     def forward(ctx, y):
+        from torch.distributed.tensor import Shard
+        ctx.cols = [isinstance(pl, Shard) and pl.dim == y.ndim - 1
+                    for pl in y.placements]
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
-        return whole_rows(g)
+        from torch.distributed.tensor import Shard
+        g = whole_rows(g)
+        pls = [Shard(g.ndim - 1) if col and not isinstance(pl, Shard)
+               else pl for col, pl in zip(ctx.cols, g.placements)]
+        return g if pls == list(g.placements) else g.redistribute(
+            g.device_mesh, pls)
 
 
 def whole_rows_grad(y: torch.Tensor) -> torch.Tensor:
@@ -378,7 +390,38 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=()):
+def _spec_placements(mesh, spec, shape, batch: int) -> list:
+    """The placements of a tensor of ``shape`` laid out by ``spec`` (a
+    tuple per dim of ``"B"``, the batch axes of a global batch of
+    ``batch`` rows, ``"model"`` or None, each dropped where it does not
+    divide)."""
+    from ..dist.policy import P, _fit_spec
+    from ..dist.sharding import batch_spec_axes, placements
+    ba = batch_spec_axes(mesh, batch)
+    return placements(mesh, _fit_spec(mesh, P(*(
+        ba if e == "B" else e for e in spec)), shape))
+
+
+def local_zeros(like: torch.Tensor, shape, spec, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """Zeros of ``shape`` for a block computation on ``like``'s rows: a
+    DTensor on ``like``'s mesh laid out by ``spec`` (as
+    ``on_local_blocks`` lays it out, ``shape[0]`` the batch), each rank
+    allocating only its own block, where ``like`` is a DTensor; a plain
+    tensor on ``like``'s device otherwise."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+
+    from ..dist.sharding import mesh_view
+    dm = like.device_mesh
+    return zeros(tuple(shape), dtype=dtype, device_mesh=dm,
+                 placements=_spec_placements(mesh_view(dm), spec,
+                                             tuple(shape), shape[0]))
+
+
+def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=(),
+                    partial_outs=None):
     """``fn(*args)`` on each rank's blocks, for a computation that is local
     to its batch rows and its heads or channels (a recurrence along the
     sequence, which DTensor would otherwise run op by op and flatten
@@ -389,23 +432,22 @@ def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=()):
     not divide.  ``fn`` runs on the local tensors and returns a tuple,
     whose entry i becomes a DTensor laid out as arg ``out_like[i]``, but
     a partial sum over the axes of ``partial_over`` that split an arg (a
-    sum over the blocks, as of experts).  An arg replicated over a mesh
+    sum over the blocks, as of experts) where i is in ``partial_outs``
+    (every entry by default).  An arg replicated over a mesh
     axis that splits another arg gets its gradient as a partial sum over
     that axis: each rank's block adds its share."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    from ..dist.policy import P, _fit_spec
-    from ..dist.sharding import batch_spec_axes, mesh_view, placements
+    from ..dist.sharding import mesh_view
     dm = next(a.device_mesh for a in args if is_dtensor(a))
     mesh = mesh_view(dm)
-    ba = batch_spec_axes(mesh, args[0].shape[0])
     whole = []
     for a, spec in zip(args, specs):
         if not is_dtensor(a):
             a = DTensor.from_local(a, dm, [Replicate()] * dm.ndim,
                                    run_check=False)
-        whole.append((a, placements(mesh, _fit_spec(mesh, P(*(
-            ba if e == "B" else e for e in spec)), tuple(a.shape)))))
+        whole.append((a, _spec_placements(mesh, spec, tuple(a.shape),
+                                          args[0].shape[0])))
     split = {i for _, pl in whole for i, p in enumerate(pl)
              if isinstance(p, Shard)}
     local = [_ContiguousGrad.apply(a.redistribute(dm, pl).to_local(
@@ -415,8 +457,10 @@ def on_local_blocks(fn: Callable, args, specs, out_like, partial_over=()):
     names = [a for a in mesh.axis_names if mesh.shape[a] > 1]
     partial = {names.index(a) for a in partial_over if a in names} & split
     return tuple(DTensor.from_local(o.contiguous(), dm, [
-        Partial() if j in partial else p for j, p in enumerate(whole[i][1])],
-        run_check=False) for o, i in zip(fn(*local), out_like))
+        Partial() if j in partial and (partial_outs is None or n in
+                                       partial_outs) else p
+        for j, p in enumerate(whole[i][1])], run_check=False)
+        for n, (o, i) in enumerate(zip(fn(*local), out_like)))
 
 
 def _gathered_over_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

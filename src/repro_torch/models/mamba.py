@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaConfig, ModelConfig
 from .layers import (Params, dense, dense_init, draw_device, is_dtensor,
-                     normal, on_local_blocks, whole_rows)
+                     local_zeros, normal, on_local_blocks, whole_rows)
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int, *,
@@ -144,8 +144,11 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     bsz, t, d = x.shape
     di, n, r = m.inner(d), m.d_state, m.rank(d)
     if state is None:
-        conv_hist = x.new_zeros((bsz, m.d_conv - 1, di))
-        h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+        # laid out as x_in and the scan take them: a rank's block only
+        conv_hist = local_zeros(x, (bsz, m.d_conv - 1, di),
+                                ("B", None, "model"), x.dtype)
+        h0 = local_zeros(x, (bsz, di, n), ("B", "model", None),
+                         torch.float32)
     else:
         conv_hist, h0 = state["conv"], state["ssm"]
 

@@ -14,21 +14,27 @@ chunk) is an independent dispatch group with its own capacity
 choice by choice in token order, and a token whose expert is full is
 dropped for that choice.  Dispatch and combine are one-hot einsums, as in
 the reference (plain tensor algebra there too, outside any kernel).  The
-reference scans over the chunks; here the chunks are folded into the
-batch dimension, which gives each group the same slots in one pass.
+reference scans over the chunks so that the ``[B, T, E, C]`` one-hots stay
+small; here the chunks are folded into the batch dimension, so one pass
+builds every group's one-hots at once.  Groups are independent: folding
+them changes no slot.
 
-On a ``model`` axis (DTensors) the experts split over ``model`` run on
-each rank's own groups and experts (``layers.on_local_blocks``), their
-outputs a partial sum over ``model``.  In the data-axis "auto" step
-(``global_batch_stats``) the load-balance loss's two means are taken
-over the global batch.
+On a ``model`` axis (DTensors) the router runs on each rank's own block
+of the residual (per token: it needs no other rank's rows), and the
+load-balance loss's two means are sums of the ranks' blocks reduced over
+the axes that split the tokens.  The experts split over ``model`` then
+run on each rank's own groups (its batch rows, the sequence made whole)
+and its own experts (``layers.on_local_blocks``), the one-hots built
+there for those groups and experts only, their outputs a partial sum
+over ``model``.  In the data-axis "auto" step (``global_batch_stats``)
+the load-balance loss's two means are taken over the global batch.
 """
 
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -84,25 +90,33 @@ def router_topk(probs: torch.Tensor, k: int
 
 
 def _dispatch_chunk(x: torch.Tensor, router_probs: torch.Tensor,
-                    moe: MoEConfig, cap: int
+                    moe: MoEConfig, cap: int,
+                    experts: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dispatch, combine) one-hots for groups ``[G, T, d]``.
 
-    dispatch: [G, T, E, C] in {0, 1} of x's dtype; combine: dispatch times
-    the renormalized gate, f32.  Top-k choices claim capacity slots in
-    priority order (GShard): every token's first choice, then every
-    token's second, each in token order."""
+    dispatch: [G, T, E', C] in {0, 1} of x's dtype; combine: dispatch
+    times the renormalized gate, f32.  Top-k choices claim capacity slots
+    in priority order (GShard): every token's first choice, then every
+    token's second, each in token order.  The top-k is taken over every
+    expert of ``router_probs``; the one-hots hold the columns of
+    ``experts`` (ids, all E by default) only.  An expert's slots depend
+    on its own claims alone, so a block of its columns is the whole
+    one-hots' block."""
     g, t, e = router_probs.shape
+    if experts is None:
+        experts = torch.arange(e, device=x.device)
     gates, idx = router_topk(router_probs, moe.top_k)           # [G,T,K]
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
+    n = experts.shape[0]
     slots = torch.arange(cap, device=x.device)
-    counts = torch.zeros((g, e), dtype=torch.int64, device=x.device)
-    dispatch = torch.zeros((g, t, e, cap), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((g, t, e, cap), dtype=torch.float32,
+    counts = torch.zeros((g, n), dtype=torch.int64, device=x.device)
+    dispatch = torch.zeros((g, t, n, cap), dtype=x.dtype, device=x.device)
+    combine = torch.zeros((g, t, n, cap), dtype=torch.float32,
                           device=x.device)
     for choice in range(moe.top_k):
-        onehot = F.one_hot(idx[..., choice], e)                 # [G,T,E]
+        onehot = (idx[..., choice, None] == experts).to(torch.int64)
         pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
         keep = (pos < cap) & (onehot > 0)
         counts = counts + onehot.sum(dim=1)
@@ -152,27 +166,57 @@ def _experts(dispatch: torch.Tensor, combine: torch.Tensor,
              w_down: torch.Tensor, *, act) -> torch.Tensor:
     """Groups ``xc`` [G, T, d] through their experts' gated MLPs by the
     one-hot ``dispatch`` and back by ``combine`` ([G, T, E, C]), as the
-    reference's einsums."""
+    reference's einsums.  Each product's input is let go once it is used
+    (without autograd nothing else holds it)."""
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xc)          # [G,E,C,d]
     h = (act(torch.einsum("gecd,edf->gecf", xe, w_gate))
          * torch.einsum("gecd,edf->gecf", xe, w_up))
+    del xe
     ye = torch.einsum("gecf,efd->gecd", h, w_down)             # [G,E,C,d]
+    del h
     return torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+
+
+def _route_sums(x: torch.Tensor, router: torch.Tensor, n_experts: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(router probs [..., E] f32 of x's tokens, their sums [2, E] over
+    those tokens: the probabilities', and the count of tokens whose top-1
+    is each expert)."""
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    top1 = torch.argmax(probs, dim=-1)          # first index among ties
+    return probs, torch.stack([
+        probs.reshape(-1, n_experts).sum(0),
+        F.one_hot(top1.reshape(-1), n_experts).sum(0).to(torch.float32)])
+
+
+def _group_experts(moe: MoEConfig, t: int, cap: int, act):
+    """The experts of a rank's groups, on local blocks: x [b, S, d] and
+    its router probs [b, S, E] cut into groups of ``t`` tokens, the
+    one-hots of the experts ``ids`` (the rank's block of ``w_*``) only."""
+    def run(x, probs, ids, w_gate, w_up, w_down):
+        b, s, d = x.shape
+        xc = x.reshape(b * (s // t), t, d)
+        dispatch, combine = _dispatch_chunk(
+            xc, probs.reshape(b * (s // t), t, -1), moe, cap, ids)
+        return (_experts(dispatch, combine, xc, w_gate, w_up, w_down,
+                         act=act).reshape(b, s, d),)
+    return run
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP over [B, S, d].  Returns (out [B, S, d], aux loss f32)."""
     moe = cfg.moe
-    b, s, d = x.shape
+    b, s, _ = x.shape
+    e = moe.n_experts
     act = activation(cfg.act)
     t = min(chunk, s)
     if s % t:
         raise ValueError(f"sequence {s} is not a multiple of the MoE chunk "
                          f"{t}")
     cap = capacity(t, moe)
-    # on a model axis the dispatch groups need the sequence whole
-    x = whole_rows(x)
+    if is_dtensor(x):
+        return _moe_sharded(p, x, cfg, t, cap, act)
 
     router_probs = torch.softmax(dense(x.to(torch.float32), p["router"]),
                                  dim=-1)
@@ -180,26 +224,45 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     # load-balance aux loss over the full sequence, f32
     me = router_probs.mean(dim=(0, 1))                          # [E]
     top1 = torch.argmax(router_probs, dim=-1)   # first index among ties
-    ce = F.one_hot(top1, moe.n_experts).to(torch.float32).mean(dim=(0, 1))
+    ce = F.one_hot(top1, e).to(torch.float32).mean(dim=(0, 1))
     me, ce = _batch_means(me, ce)
-    aux = moe.n_experts * torch.sum(me * ce)
+    aux = e * torch.sum(me * ce)
 
     # every (row, chunk) is one dispatch group
-    xc = x.reshape(b * (s // t), t, d)
-    dispatch, combine = _dispatch_chunk(
-        xc, router_probs.reshape(b * (s // t), t, -1), moe, cap)
-    args = (dispatch, combine, xc, p["w_gate"], p["w_up"], p["w_down"])
-    if is_dtensor(xc):
-        # each rank's groups (its batch rows) through its experts (split
-        # over ``model``), their outputs a partial sum over ``model``
-        out, = on_local_blocks(
-            lambda *a: (_experts(*a, act=act),), args,
-            (("B", None, "model", None),) * 2 + (("B", None, None),)
-            + (("model", None, None),) * 3, out_like=(2,),
-            partial_over=("model",))
-    else:
-        out = _experts(*args, act=act)
-    out = whole_rows_grad(out.reshape(b, s, d))
+    out, = _group_experts(moe, t, cap, act)(
+        x, router_probs, None, p["w_gate"], p["w_up"], p["w_down"])
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x, act=cfg.act)
+    return out, aux
+
+
+def _moe_sharded(p: Params, x, cfg: ModelConfig, t: int, cap: int, act):
+    """:func:`moe_forward` on DTensors.  The router runs on each rank's
+    own block of x (laid out as the residual), its sums a partial sum
+    over the axes that split the tokens, reduced into the global means
+    (the gradient of each rank's block is its own tokens'); the dispatch
+    groups take x and the probs with the sequence made whole."""
+    from torch.distributed.tensor import Replicate
+    moe = cfg.moe
+    b, s, _ = x.shape
+    e = moe.n_experts
+    probs, sums = on_local_blocks(
+        lambda xl, r: _route_sums(xl, r, e), (x, p["router"]),
+        (("B", "model", None), (None, None)), out_like=(0, 1),
+        partial_over=("pod", "data", "model"), partial_outs=(1,))
+    dm = sums.device_mesh
+    means = sums.redistribute(dm, [Replicate()] * dm.ndim) / (b * s)
+    aux = e * torch.sum(means[0] * means[1])
+
+    x = whole_rows(x)                  # once for the experts and shared
+    ids = torch.arange(e, device=sums.device)
+    out, = on_local_blocks(
+        _group_experts(moe, t, cap, act),
+        (x, probs, ids, p["w_gate"], p["w_up"], p["w_down"]),
+        (("B", None, None),) * 2 + (("model",),)
+        + (("model", None, None),) * 3, out_like=(0,),
+        partial_over=("model",))
+    out = whole_rows_grad(out)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, act=cfg.act)
     return out, aux

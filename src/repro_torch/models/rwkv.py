@@ -35,8 +35,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, RWKVConfig
 from .layers import (Params, activation, dense, dense_init, draw_device,
-                     is_dtensor, normal, on_local_blocks, whole_last_dim,
-                     whole_rows)
+                     is_dtensor, local_zeros, normal, on_local_blocks,
+                     whole_last_dim, whole_rows)
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, shift: float, *,
@@ -132,9 +132,10 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     h, hd = r_cfg.n_heads(d), r_cfg.head_dim
     x = whole_rows(x)           # the token shift and the chunks need it
     if state is None:
-        prev_x = x.new_zeros((b, 1, d))
-        s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                         device=x.device)
+        # laid out as x and the scan take them: a rank's block only
+        prev_x = local_zeros(x, (b, 1, d), ("B", None, None), x.dtype)
+        s0 = local_zeros(x, (b, h, hd, hd), ("B", "model", None, None),
+                         torch.float32)
     else:
         prev_x, s0 = state["shift"], state["wkv"]
 

@@ -5,7 +5,8 @@ forced CPU devices, on the same mesh shapes, the same params and the same
 batches.
 
 A test file names its *plan*: the reduced configs it runs (with any cut of
-depth or heads; ``"arch:tag"`` names a second cut of ``arch``), the
+depth or heads, or a sub-config's field as ``"moe.capacity_factor"``;
+``"arch:tag"`` names a second cut of ``arch``), the
 training cases ``(arch, mesh, case)`` and the serving runs ``(arch, mesh,
 kind)``.  ``run_twins`` starts one JAX subprocess and one
 4-rank world for the whole plan, at the same time, and returns their
@@ -48,6 +49,9 @@ import textwrap
 
 import numpy as np
 
+from _torch_cuts import SOURCE as _CUT_SOURCE
+from _torch_cuts import cut_config
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_RANKS, LR, SEQ, BATCH = 4, 0.1, 32, 8
 PREFILL_ROWS, CACHE_LEN, DECODE_STEPS = 4, 64, 3
@@ -73,10 +77,11 @@ _COMMON = textwrap.dedent("""
     (meshes, train, ref_mesh, seq_leaves, (lr, seq, batch, rows, cache_len,
                                            steps)) = plan["consts"]
     data = np.load(inp)
+""") + _CUT_SOURCE + textwrap.dedent("""
 
     def reduced(get_config, arch):
-        return dataclasses.replace(get_config(arch.split(":")[0]).reduced(),
-                                   **plan["cuts"].get(arch, {}))
+        return cut_config(get_config(arch.split(":")[0]).reduced(),
+                          plan["cuts"].get(arch, {}))
 
     def batch_np(arch, n=None):
         return {k.split("/")[2]: data[k][:n] for k in data.files
@@ -300,8 +305,6 @@ _PORT_SCRIPT = textwrap.dedent("""
 def _inputs(plan: dict) -> dict:
     """The JAX-initialized params, the batches and the int8 caches of the
     plan, as numpy arrays keyed as the scripts read them."""
-    import dataclasses
-
     import jax
     import jax.numpy as jnp
 
@@ -312,8 +315,8 @@ def _inputs(plan: dict) -> dict:
 
     out = {}
     for arch in plan["archs"]:
-        cfg = dataclasses.replace(get_config(arch.split(":")[0]).reduced(),
-                                  **plan["cuts"].get(arch, {}))
+        cfg = cut_config(get_config(arch.split(":")[0]).reduced(),
+                         plan["cuts"].get(arch, {}))
         params = jax.jit(build_model(cfg, dtype=jnp.float32).init)(
             jax.random.key(0))
         for i, leaf in enumerate(jax.tree_util.tree_leaves(params)):

@@ -32,10 +32,19 @@
 * The cut with 6 q and 6 KV heads, fewer than the 16 ranks (whisper's
   count): 3 heads and an eighth of the queries a rank, no zero head; its
   train and prefill FLOPs a rank at most 1.2x the reference's.
-* The train step's and the prefill's peak a rank on both cuts at most
+* A cut of deepseek-v2 (16/16 heads, d 512, vocab 4096, 16 experts, the
+  MLA latents 64 and 256: every split dim divides 16): its train and
+  prefill FLOPs a rank within ``FLOPS_RTOL`` of the reference's, the
+  router on each rank's own tokens and the q latent's gradient on each
+  rank's block of its columns (1.230x on train when the router's
+  backward ran on the global batch and ``q_down``'s on the whole latent).
+* The train step's and the prefill's peak a rank on the cuts at most
   twice the reference's, and no op holding more than 0.5 GB of it: the
   loss takes the vocab-split logits on each rank's block and recomputes
-  each chunk in the backward (``models/layers.py:chunked_loss``).
+  each chunk in the backward (``models/layers.py:chunked_loss``), and
+  the experts' one-hots are built for a rank's own groups and experts
+  only (``models/moe.py``; 4.03 GB of ``aten.zeros`` on the deepseek-v2
+  cut when every rank built the global batch's).
 * The prefill's decode cache laid out a layer at a time
   (``models/transformer.py:CacheStack``): no op of its layout
   (``op_analysis.scope("cache")``) ever holds more than the cache's own
@@ -56,6 +65,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from _torch_cuts import SOURCE as _CUT_SOURCE
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import applicable as j_applicable
 from repro.configs import get_config as j_get_config
@@ -85,6 +95,13 @@ PAD_FLOPS_RATIO = 1.09
 CUT_6 = dict(CUT, n_heads=6, n_kv_heads=6)
 CUT_6_CELLS = ["train_4k", "prefill_32k"]
 FEW_HEADS_RATIO = 1.2
+# deepseek-v2 cut so that every split dim divides 16: its MLA latent (the
+# q latent's block of 16 a rank) and its 16 experts (one a rank)
+DS = "deepseek-v2-236b"
+CUT_DS = {"n_heads": 16, "n_kv_heads": 16, "d_model": 512,
+          "vocab_size": 4096, "moe.n_experts": 16, "mla.kv_lora_rank": 64,
+          "mla.q_lora_rank": 256}
+CUT_DS_CELLS = ["train_4k", "prefill_32k"]
 PEAK_RATIO, HOLDER_BYTES = 2.0, 0.5e9
 KERNELS = ["quantize", "dequantize", "dequant_aggregate", "grad_aggregate",
            "switch_sum", "scatter_aggregate", "flash_attention"]
@@ -255,8 +272,8 @@ def test_cpu_route_is_the_plain_version():
 # --------------------------------------------------------------------------- #
 # run_cell against the reference's, each in its own process
 # --------------------------------------------------------------------------- #
-_PORT_SCRIPT = textwrap.dedent("""
-    import dataclasses, json, sys
+_PORT_SCRIPT = _CUT_SOURCE + textwrap.dedent("""
+    import json, sys
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -274,29 +291,29 @@ _PORT_SCRIPT = textwrap.dedent("""
     with OpAnalysis() as oa:
         dist.all_gather_into_tensor(x.new_empty(4, 256), x)
     out["c10d"] = oa.collective_by_kind
-    for name, (cut, cells) in cuts.items():
-        cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), **cut)
+    for name, (arch, cut, cells) in cuts.items():
+        cfg = cut_config(get_config(arch).reduced(), cut)
         dryrun.get_config = lambda arch: cfg
-        out[name] = {shape: dryrun.run_cell("qwen2-0.5b", shape,
-                                            out_dir=None) for shape in cells}
-    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              **cuts["cut"][0])
+        out[name] = {shape: dryrun.run_cell(arch, shape, out_dir=None)
+                     for shape in cells}
+    arch, cut, _ = cuts["cut"]
+    cfg = cut_config(get_config(arch).reduced(), cut)
     out["mlfabric_2x16x16"] = dryrun.run_cell(
-        "qwen2-0.5b", "train_4k", multi_pod=True, out_dir=None,
+        arch, "train_4k", multi_pod=True, out_dir=None,
         step_kwargs={"grad_path": "mlfabric", "compress_inter": True})
     print(json.dumps(out))
 """)
 
-_REF_SCRIPT = textwrap.dedent("""
-    import dataclasses, json, sys
+_REF_SCRIPT = _CUT_SOURCE + textwrap.dedent("""
+    import json, sys
     import repro.launch.dryrun as dryrun       # sets the device count first
     from repro.configs import get_config
 
     out = {}
-    for name, (cut, cells) in json.loads(sys.argv[1]).items():
-        cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), **cut)
+    for name, (arch, cut, cells) in json.loads(sys.argv[1]).items():
+        cfg = cut_config(get_config(arch).reduced(), cut)
         dryrun.get_config = lambda arch: cfg
-        out[name] = {s: dryrun.run_cell("qwen2-0.5b", s, out_dir=None)
+        out[name] = {s: dryrun.run_cell(arch, s, out_dir=None)
                      for s in cells}
     print(json.dumps(out))
 """)
@@ -306,9 +323,10 @@ _REF_SCRIPT = textwrap.dedent("""
 def cells():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    args = [json.dumps({"cut": [CUT, CUT_CELLS],
-                        "cut14": [CUT_14, CUT_14_CELLS],
-                        "cut6": [CUT_6, CUT_6_CELLS]})]
+    args = [json.dumps({"cut": ["qwen2-0.5b", CUT, CUT_CELLS],
+                        "cut14": ["qwen2-0.5b", CUT_14, CUT_14_CELLS],
+                        "cut6": ["qwen2-0.5b", CUT_6, CUT_6_CELLS],
+                        "cut_ds": [DS, CUT_DS, CUT_DS_CELLS]})]
     procs = {name: subprocess.Popen(
         [sys.executable, "-c", script, *args], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env)
@@ -353,6 +371,18 @@ def test_flops_of_fewer_heads_than_ranks(cells, shape):
                                         * ref["flops_per_device"])
 
 
+@pytest.mark.parametrize("shape", CUT_DS_CELLS)
+def test_flops_of_routed_experts_and_latent_attention(cells, shape):
+    """The deepseek-v2 cut: the router on each rank's own tokens and the
+    q latent's gradient on each rank's block of its columns
+    (``models/moe.py``, ``models/layers.py:_WholeRowsGrad``): the FLOPs a
+    rank within ``FLOPS_RTOL`` of the reference's."""
+    port, ref = cells["port"]["cut_ds"][shape], cells["ref"]["cut_ds"][shape]
+    assert port["status"] == ref["status"] == "ok"
+    np.testing.assert_allclose(port["flops_per_device"],
+                               ref["flops_per_device"], rtol=FLOPS_RTOL)
+
+
 def _check_peak(cells, cut, shape):
     port = cells["port"][cut][shape]["memory"]
     ref = cells["ref"][cut][shape]["memory"]
@@ -361,12 +391,12 @@ def _check_peak(cells, cut, shape):
         port["peak_holders"]
 
 
-@pytest.mark.parametrize("cut", ["cut", "cut14"])
+@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds"])
 def test_train_peak_within_twice_the_reference(cells, cut):
     _check_peak(cells, cut, "train_4k")
 
 
-@pytest.mark.parametrize("cut", ["cut", "cut14"])
+@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds"])
 def test_prefill_peak_within_twice_the_reference(cells, cut):
     _check_peak(cells, cut, "prefill_32k")
 
