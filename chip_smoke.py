@@ -48,20 +48,26 @@ toolkit.  Every line it prints is one JSON object:
 7. ``reduced_tier_parity``: the reduced qwen2-0.5b's f32 gradient through
    the switch, hierarchical, keep_inter and switch + keep_inter tiers on
    the card and on the CPU: ``torch.equal``.
-8. ``dryrun`` (cell U): ``python -m repro_torch.launch.dryrun`` on one
-   production cell, qwen2-0.5b ``train_4k`` on 16x16 (rank 0 of a fake
-   256-rank world, fake tensors on the card), in a subprocess: ``ok``, its
-   per-rank FLOPs, bytes, collective bytes and peak, and its trace
-   seconds, its FLOPs a rank held within ``DRYRUN_FLOPS_RATIO`` of the
-   reference's (``DRYRUN_REF_FLOPS``: the reference's dry-run, written
-   here as a constant) and its peak a rank below 80 GB; then, in the same
-   subprocess, the predictions of cell R's auto step's peak a rank and
-   of cell S2's steps' on fake 4-rank worlds of their meshes
-   (``sharded_prediction``, ``family_predictions``), and ``DRYRUN_CELLS``
+8. ``dryrun`` (cell U): ``python -m repro_torch.launch.dryrun
+   --save-hlo`` on one production cell, qwen2-0.5b ``train_4k`` on 16x16
+   (rank 0 of a fake 256-rank world, fake tensors on the card), in a
+   subprocess: ``ok``, its per-rank FLOPs, bytes, collective bytes and
+   peak, and its trace seconds, its FLOPs a rank held within
+   ``DRYRUN_FLOPS_RATIO`` of the reference's (``DRYRUN_REF_FLOPS``: the
+   reference's dry-run, written here as a constant), its peak a rank
+   below 80 GB, and its op listing's totals equal to its FLOPs and bytes
+   a rank; before it, in the same subprocess, the softplus probe
+   (``softplus_probe``: DTensor's decomposition search left uncounted
+   under this card's torch, the peak held to ``PROBE_PEAK_RATIO`` of the
+   local block), and after it the predictions of cell R's auto step's
+   peak a rank and of cell S2's steps' on fake 4-rank worlds of their
+   meshes (``sharded_prediction``, ``family_predictions``); beside it,
+   ``DRYRUN_CELLS`` in two more subprocesses: ``DRYRUN_LONG`` (jamba's
+   ``train_4k`` peak against the reference's) and the others
    (whisper-tiny, stablelm-1.6b, deepseek-v2's ``train_4k`` FLOPs and
-   granite-moe's ``prefill_32k`` peak against the reference's); it is
+   granite-moe's ``prefill_32k`` peak against the reference's).  It is
    started after the kernels' lines (``unfused_receive``) and read just
-   before cell R (it traces on one of the host's CPU cores beside the
+   before cell R (it traces on three of the host's CPU cores beside the
    card phases, which time the card, not the host).
    ``examples``: the five tensor twins of ``examples_torch/``
    (``async_vs_sync``, ``bounded_replication``, ``failover``,
@@ -5345,7 +5351,7 @@ DRYRUN_REF_PEAK = 5329617256
 # (qwen2-0.5b's 14 over 16: 1.054x in all); 1.2x of the reference's
 # FLOPs a rank allows both
 DRYRUN_FLOPS_RATIO = 1.2
-# cell U's further cells, traced after the first in its subprocess:
+# cell U's further cells, traced beside the first:
 # whisper-tiny's (6 heads over 16 ranks: 3 heads and an eighth of the
 # queries a rank, ``attention._attend_split``) held within
 # DRYRUN_FLOPS_RATIO of the reference's FLOPs a rank, and stablelm-1.6b's
@@ -5354,8 +5360,12 @@ DRYRUN_FLOPS_RATIO = 1.2
 # deepseek-v2's train_4k (the router on each rank's own tokens, the q
 # latent's gradient on each rank's block of its columns) within its own
 # ``flops_ratio``, and granite-moe's 32k prefill (the experts' one-hots of
-# a rank's own groups and experts) within DRYRUN_PEAK_RATIO; the
-# reference's numbers from its dry-run as DRYRUN_REF_FLOPS's
+# a rank's own groups and experts) within DRYRUN_PEAK_RATIO, and
+# jamba's train_4k (its mamba layers' ``softplus_backward`` finds its
+# sharding through DTensor's decomposition search, which op_analysis
+# leaves uncounted: 252.69 GB a rank when it was counted) within
+# DRYRUN_PEAK_RATIO; the reference's numbers from its dry-run as
+# DRYRUN_REF_FLOPS's
 DRYRUN_CELLS = {
     ("whisper-tiny", "train_4k"): {"flops": 1851360313344.0},
     ("whisper-tiny", "prefill_32k"): {"flops": 946953756672.0},
@@ -5363,8 +5373,19 @@ DRYRUN_CELLS = {
     ("deepseek-v2-236b", "train_4k"): {"flops": 1149148027944960.0,
                                        "flops_ratio": 1.05},
     ("granite-moe-1b-a400m", "prefill_32k"): {"peak": 650155048},
+    ("jamba-v0.1-52b", "train_4k"): {"peak": 53441842080},
 }
 DRYRUN_PEAK_RATIO = 2.0
+# the longest of DRYRUN_CELLS (193 s of one core of an H100 host's CPU,
+# torch 2.11), traced in a subprocess of its own, the others in another
+DRYRUN_LONG = ("jamba-v0.1-52b", "train_4k")
+# cell U's softplus probe: one DTensor ``F.softplus(x.float())`` forward
+# and backward over PROBE_RANKS fake ranks, each holding a bf16 block of
+# PROBE_LOCAL; its peak at most PROBE_PEAK_RATIO times that block's bytes
+# and no op above the block in f32 (6.88 GB, 205x, when the search was
+# counted)
+PROBE_RANKS, PROBE_LOCAL = 16, (64, 1024, 256)
+PROBE_PEAK_RATIO = 16
 DS_ARCH, DS_LAYERS = "deepseek-v2-236b", 1   # cell T: cell S2's part
 DS_BATCH = 2                     # train_4k's global batch 256, cut to 2
 DS_FIT_BYTES = 76e9              # each step must be predicted at or below
@@ -5476,22 +5497,68 @@ def family_predictions(out_dir: str) -> None:
                 json.dump(r, f)
 
 
-def dryrun_cells(out_dir: str) -> None:
+def softplus_probe(out_dir: str) -> None:
+    """Cell U's softplus probe (see ``PROBE_RANKS``) as rank 0 of a fake
+    world, traced under ``OpAnalysis`` on this card's torch: its peak and
+    holders, and how this torch finds ``softplus_backward``'s sharding
+    (no rule of its own; the decomposition search, a ``staticmethod`` in
+    torch 2.11), written to ``out_dir``."""
+    import torch
+    import torch.nn.functional as F
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._decompositions import \
+        DecompShardingStrategy
+    from repro_torch.launch.dryrun import fake_world, trace_device
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    fake_world(PROBE_RANKS)
+    dev = trace_device()
+    mesh = init_device_mesh(dev.type, (PROBE_RANKS,))
+    prop = DTensor._op_dispatcher.sharding_propagator
+    op = torch.ops.aten.softplus_backward.default
+    rules = (prop.op_strategy_funcs, prop.op_to_rules,
+             prop.op_single_dim_strategy_funcs)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        local = torch.empty(PROBE_LOCAL, dtype=torch.bfloat16, device=dev,
+                            requires_grad=True)
+        x = DTensor.from_local(local, mesh, [Shard(0)], run_check=False)
+        oa = OpAnalysis()
+        oa.track(x)
+        with oa:
+            F.softplus(x.float()).sum().backward()
+    with open(os.path.join(out_dir, "softplus_probe.json"), "w") as f:
+        json.dump({"torch": torch.__version__, "trace_device": str(dev),
+                   "softplus_backward_has_rule": any(op in r for r in rules),
+                   "propagate_strategy": type(DecompShardingStrategy.__dict__[
+                       "propagate_strategy"]).__name__,
+                   "local_bytes": local.numel() * local.element_size(),
+                   "peak_bytes": oa.peak_bytes,
+                   "peak_holders": oa.peak_holders,
+                   "trace_s": time.perf_counter() - t0}, f)
+
+
+def dryrun_cells(out_dir: str, long: bool) -> None:
     """``DRYRUN_CELLS`` through ``dryrun.run_cell`` on 16x16, each written
-    to ``out_dir``."""
+    to ``out_dir``: ``DRYRUN_LONG`` alone, or all the others."""
     from repro_torch.launch import dryrun
     for arch, shape in DRYRUN_CELLS:
-        dryrun.run_cell(arch, shape, out_dir=out_dir)
+        if ((arch, shape) == DRYRUN_LONG) == long:
+            dryrun.run_cell(arch, shape, out_dir=out_dir)
 
 
 def start_dryrun() -> tuple:
-    """Cell U, started: the dry-run CLI on one production cell, then the
-    predictions of cell R's auto step (``sharded_prediction``) and of cell
-    S's ``FAMILY_PREDICTED`` steps (``family_predictions``), and
-    ``DRYRUN_CELLS``, in one subprocess (this card's torch, on the host's
-    CPU while the card runs other phases, which report no time); returns
-    the running cell for ``finish_dryrun``.  The subprocess is killed at
-    exit if the script stops before it ends."""
+    """Cell U, started: the softplus probe, the dry-run CLI on one
+    production cell with ``--save-hlo``, then the predictions of cell R's
+    auto step (``sharded_prediction``) and of cell S's
+    ``FAMILY_PREDICTED`` steps (``family_predictions``) in one subprocess,
+    and beside it ``DRYRUN_LONG`` and the other ``DRYRUN_CELLS`` in one
+    each (this card's torch, each on one of the host's CPU cores while
+    the card runs other phases, which report no time); returns the
+    running cell for ``finish_dryrun``.  The subprocesses are killed at
+    exit if the script stops before they end."""
     import atexit
     import tempfile
 
@@ -5503,19 +5570,23 @@ def start_dryrun() -> tuple:
     code = ("import sys, chip_smoke\n"
             "from repro_torch.launch import dryrun\n"
             "arch, shape, out = sys.argv[1:4]\n"
+            "chip_smoke.softplus_probe(out)\n"
             "sys.argv = ['dryrun', '--arch', arch, '--shape', shape,"
-            " '--out', out]\n"
+            " '--out', out, '--save-hlo']\n"
             "rc = dryrun.main()\n"
             "chip_smoke.sharded_prediction(out)\n"
             "chip_smoke.family_predictions(out)\n"
-            "chip_smoke.dryrun_cells(out)\n"
             "sys.exit(rc)\n")
+    cells = ("import sys, chip_smoke\n"
+             "chip_smoke.dryrun_cells(sys.argv[3], long={})\n")
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-c", code, arch, shape, out_dir], cwd=str(root),
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", c, arch, shape, out_dir], cwd=str(root),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, out_dir, t0
+        for c in (code, cells.format(False), cells.format(True))]
+    for p in procs:
+        atexit.register(lambda p=p: p.poll() is None and p.kill())
+    return procs, out_dir, t0
 
 
 # the tensor twins of ``examples/`` and their fast flags (those of
@@ -5594,20 +5665,30 @@ def finish_dryrun(cell: tuple) -> dict:
     ``FAMILY_PREDICTED`` part (``"{part}/{step}"``)."""
     import shutil
     import torch
+    from repro_torch.launch.op_analysis import read_op_listing
 
-    proc, out_dir, t0 = cell
+    procs, out_dir, t0 = cell
     arch, shape = DRYRUN_CELL
-    try:
-        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    outs = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0,
+              f"dryrun {arch} {shape}: exit {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        outs.append(stdout)
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"dryrun {arch} {shape}: exit {proc.returncode}: {stderr[-2000:]}")
+    stdout = outs[0]
     with open(os.path.join(out_dir, f"{arch}__{shape}__16-16.json")) as f:
         res = json.load(f)
+    with open(os.path.join(out_dir, f"{arch}__{shape}__16-16.ops.txt")) as f:
+        listing = read_op_listing(f.read())
+    with open(os.path.join(out_dir, "softplus_probe.json")) as f:
+        probe = json.load(f)
     with open(os.path.join(out_dir, "sharded_auto.json")) as f:
         pred = json.load(f)
     preds = {"sharded/auto": pred}
@@ -5661,6 +5742,29 @@ def finish_dryrun(cell: tuple) -> dict:
           f"against the reference's {DRYRUN_REF_FLOPS}")
     check(res["memory"]["peak_bytes"] < CARD_BYTES,
           f"dryrun {arch} {shape}: peak {res['memory']['peak_bytes']} a rank")
+    rows = sorted(listing["rows"].items(), key=lambda kv: -kv[1][1])
+    emit({"phase": "dryrun", "cell": "U", "op_listing": f"{arch}__{shape}",
+          "keys": len(rows), "total": listing["total"],
+          "flops_per_device": res["flops_per_device"],
+          "bytes_per_device": res["bytes_per_device"],
+          "top_flops": [[k, *v] for k, v in rows[:3]]})
+    check(listing["total"] is not None
+          and listing["total"]["flops"] == res["flops_per_device"]
+          and listing["total"]["bytes"] == res["bytes_per_device"],
+          f"dryrun {arch} {shape}: the op listing's totals "
+          f"{listing['total']} against {res['flops_per_device']} FLOPs and "
+          f"{res['bytes_per_device']} bytes")
+    emit({"phase": "dryrun", "cell": "U", "probe": "softplus",
+          "ranks": PROBE_RANKS, "local": PROBE_LOCAL, **probe,
+          "peak_vs_local": probe["peak_bytes"] / probe["local_bytes"]})
+    check(probe["trace_device"].startswith("cuda"),
+          f"softplus probe traced on {probe['trace_device']}")
+    check(probe["peak_bytes"] <= PROBE_PEAK_RATIO * probe["local_bytes"]
+          and max(probe["peak_holders"].values())
+          <= 2 * probe["local_bytes"],
+          f"softplus probe: peak {probe['peak_bytes']} against "
+          f"{PROBE_PEAK_RATIO}x {probe['local_bytes']}, holders "
+          f"{probe['peak_holders']}")
     for (a, sh), r in cells.items():
         ref = DRYRUN_CELLS[a, sh]
         m = r.get("memory", {})

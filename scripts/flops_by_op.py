@@ -1,14 +1,14 @@
 """Split one dry-run cell's FLOPs a rank by op, the port's beside the
 reference's, to place a gap between the two.
 
-The port's side traces the cell as ``repro_torch.launch.dryrun`` does (on
-16x16, one rank of a fake world) and adds up each FLOP-counting op by its
-operands' shapes.  The reference's side reads the post-SPMD HLO text its
-dry-run writes (``python -m repro.launch.dryrun --arch A --shape S
---save-hlo``) and adds up each ``dot`` by its output and operand shapes,
-times the trip counts of the loops around it, as
-``repro/launch/hlo_analysis.py`` counts them.  This script parses that text
-itself and imports no JAX.
+The port's side traces the cell as ``repro_torch.launch.dryrun
+--save-hlo`` does (on 16x16, one rank of a fake world) and reads each
+op's FLOPs by its operands' dtypes and shapes from the cell's op listing.
+The reference's side reads the post-SPMD HLO text its dry-run writes
+(``python -m repro.launch.dryrun --arch A --shape S --save-hlo``) and adds
+up each ``dot`` by its output and operand shapes, times the trip counts of
+the loops around it, as ``repro/launch/hlo_analysis.py`` counts them.
+This script parses that text itself and imports no JAX.
 
 Usage:
     PYTHONPATH=src python scripts/flops_by_op.py --arch deepseek-v2-236b \\
@@ -26,8 +26,9 @@ then the given fields), as ``tests/test_torch_dryrun.py`` cuts it; a
 dotted field sets a sub-config's (``moe.n_experts=16``,
 ``mla.q_lora_rank=256``).  ``--impl`` picks the attention impl.
 
-Prints ``port`` lines (FLOPs, op, operand shapes), ``reference`` lines
-(FLOPs, output, operand shapes, executions) and each side's total.
+Prints ``port`` lines (FLOPs, op, operand dtypes and shapes, calls),
+``reference`` lines (FLOPs, output, operand shapes, executions) and each
+side's total.
 """
 
 from __future__ import annotations
@@ -75,36 +76,26 @@ def cut_config(cfg, cut: Dict[str, int]):
 def port_flops(arch: str, shape: str, *, reduced: bool = False,
                cut: Dict[str, int] = None, impl: str = "blockwise"
                ) -> Tuple[float, Counter]:
-    """(total, FLOPs by "op operand-shapes") of the port's cell."""
-    import torch
+    """(total, FLOPs by "op operands x count") of the port's cell."""
+    import tempfile
 
     from repro_torch.launch import dryrun
-    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.op_analysis import read_op_listing
     from repro_torch.models import attention
 
     cfg = dryrun.get_config(arch)
     cfg = cut_config(cfg.reduced() if reduced else cfg, cut)
     dryrun.get_config = lambda name: cfg
     attention.set_attention_impl(impl)
-
-    by = Counter()
-    dispatch = OpAnalysis.__torch_dispatch__
-
-    def counted(self, func, types, args=(), kwargs=None):
-        before = self.flops
-        out = dispatch(self, func, types, args, kwargs)
-        if self.flops > before:
-            shapes = [tuple(a.shape) for a in args
-                      if isinstance(a, torch.Tensor)]
-            by[f"{func._overloadpacket} {shapes}"] += self.flops - before
-        return out
-
-    OpAnalysis.__torch_dispatch__ = counted
     try:
-        res = dryrun.run_cell(arch, shape, out_dir=None)
+        with tempfile.TemporaryDirectory() as out:
+            res = dryrun.run_cell(arch, shape, out_dir=out, save_hlo=True)
+            tag = f"{arch}__{shape}__{res['mesh'].replace('x', '-')}"
+            rows = read_op_listing(
+                Path(out, tag + ".ops.txt").read_text())["rows"]
     finally:
-        OpAnalysis.__torch_dispatch__ = dispatch
         attention.set_attention_impl("blockwise")
+    by = Counter({f"{key} x{n}": f for key, (n, f, _) in rows.items() if f})
     return res["flops_per_device"], by
 
 

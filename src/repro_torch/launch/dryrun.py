@@ -15,9 +15,16 @@ The fake tensors lie on the card where PyTorch is built for CUDA, else on
 the CPU (a CPU-only build cannot index a tensor on a CUDA device, even a
 fake one); nothing runs on either, and no number below is measured.
 
+Each cell's result goes to ``<out>/<tag>.json``.  With ``--save-hlo`` the
+op listing goes beside it, ``<tag>.ops.txt``: the port's counterpart of the
+reference's ``<tag>.hlo.txt``, one line per (op, operand dtypes and
+shapes) with its FLOPs, bytes and count, largest FLOPs first, and a
+``total`` line equal to the JSON's ``flops_per_device`` and
+``bytes_per_device`` (``op_analysis.op_listing``).
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
-        --shape train_4k [--multipod] [--out runs/dryrun_torch]
+        --shape train_4k [--multipod] [--out runs/dryrun_torch] [--save-hlo]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod]
 """
 
@@ -40,7 +47,7 @@ from ..dist import sharding as shd
 from ..obs.report import roofline_attribution
 from ..tree import tree_map
 from .mesh import Mesh, make_production_mesh
-from .op_analysis import OpAnalysis, storages
+from .op_analysis import OpAnalysis, op_listing, storages
 from .steps import StepBundle, build_step
 
 # NVIDIA H100 SXM roofline targets (NVIDIA's data sheet, dense rates, at the
@@ -149,7 +156,7 @@ def analyze_step(bundle: StepBundle, cfg, shape, mesh: Mesh,
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              out_dir: Optional[str] = "runs/dryrun_torch",
-             step_kwargs=None) -> dict:
+             save_hlo: bool = False, step_kwargs=None) -> dict:
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, why = applicable(cfg, shape)
@@ -200,6 +207,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         tag = f"{arch}__{shape_name}__{result['mesh'].replace('x', '-')}"
         with open(os.path.join(out_dir, tag + ".json"), "w") as f:
             json.dump(result, f, indent=2)
+        if save_hlo:
+            with open(os.path.join(out_dir, tag + ".ops.txt"), "w") as f:
+                f.write(op_listing(a["ops"], f"{arch} {shape_name} on "
+                                   f"{result['mesh']}, one rank of {world}"))
     return result
 
 
@@ -212,6 +223,8 @@ def main() -> int:
     ap.add_argument("--all", action="store_true", help="run every cell")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default="runs/dryrun_torch")
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="write each cell's op listing to <tag>.ops.txt")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8-quantized KV cache for decode cells")
     ap.add_argument("--microbatches", type=int, default=1,
@@ -234,7 +247,8 @@ def main() -> int:
             if args.microbatches > 1 and SHAPES[shape].kind == "train":
                 kw["microbatches"] = args.microbatches
             res = run_cell(arch, shape, multi_pod=args.multipod,
-                           out_dir=args.out, step_kwargs=kw)
+                           out_dir=args.out, save_hlo=args.save_hlo,
+                           step_kwargs=kw)
         except Exception:
             traceback.print_exc()
             res = {"arch": arch, "shape": shape, "status": "FAILED"}

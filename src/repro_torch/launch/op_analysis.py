@@ -28,16 +28,31 @@ in the dry-run; on real tensors it counts the same):
   cache's layout runs in ``scope("cache")``), the most bytes each op's
   storages held at once at any time, keyed ``"{scope}/{op}"``.
 
+* ``ops``: every op counted, keyed ``"{op} {operands}"`` (the overload
+  and each tensor operand's dtype and shape), with its count, FLOPs and
+  bytes: the op listing the dry-run writes (:func:`op_listing`), the
+  counterpart of the reference's HLO text.
+
 DTensor ops are not counted themselves: the mode defers them to DTensor,
 whose local ops and collectives it then sees, so every number is one
-rank's.  Nor are the ops DTensor runs on global-shape fake tensors to
-infer an output's shape (its sharding propagation): they are no work of
-the rank's.
+rank's.  Nor are the ops DTensor runs on global-shape tensors to choose a
+sharding, which are no work of the rank's: while one of
+:data:`SHADOWED` runs, its ops run uncounted.  They are the two places in
+``torch/distributed/tensor/_sharding_prop.py`` (torch 2.11 and 2.13)
+where DTensor runs ops on tensors of the global shape: the shape
+inference of every op's output, on fake tensors
+(``ShardingPropagator._propagate_tensor_meta_non_cached``), and, for an
+op without a sharding rule of its own (``softplus_backward``), the
+search through its decomposition for one, on ``meta`` tensors
+(``DecompShardingStrategy.propagate_strategy``; a static method in 2.11).
+Both run only where DTensor's sharding cache misses, so a count that took
+them in would also hang on what the process had traced before.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import weakref
 from collections import Counter
 from typing import Any, Dict, Iterable
@@ -80,6 +95,15 @@ _NO_TRAFFIC = {"aten::detach", "aten::alias", "aten::empty",
                "_c10d_functional::_wrap_tensor_autograd"}
 
 
+# (module, class, method) of each of DTensor's searches over global-shape
+# tensors (see the module note)
+SHADOWED = (
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "_propagate_tensor_meta_non_cached"),
+    ("torch.distributed.tensor._decompositions", "DecompShardingStrategy",
+     "propagate_strategy"),
+)
+
 _SCOPES: list = []
 
 
@@ -103,6 +127,22 @@ def _tensors(x: Any) -> Iterable[torch.Tensor]:
     return (t for t in tree_leaves(x) if isinstance(t, torch.Tensor))
 
 
+def _op_tensors(x: Any, into: list) -> list:
+    """The tensors of an op's arguments or outputs (in lists, tuples and
+    dicts), in ``_tensors``' order, appended to ``into``: every op of a
+    trace walks them, and the general pytree walk was the larger part of
+    this mode's own cost."""
+    if isinstance(x, torch.Tensor):
+        into.append(x)
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            _op_tensors(y, into)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _op_tensors(y, into)
+    return into
+
+
 def storages(tree: Any) -> Dict[int, torch.UntypedStorage]:
     """The storages ``tree``'s tensors hold (a DTensor's: its local
     shard's), by ``id``."""
@@ -117,6 +157,44 @@ def storages(tree: Any) -> Dict[int, torch.UntypedStorage]:
 def _is_dtensor_type(t: type) -> bool:
     from torch.distributed.tensor import DTensor
     return issubclass(t, DTensor)
+
+
+def _key_text(key: tuple) -> str:
+    """``"{overload} {dtype}[{shape}] ..."`` of an ``OpAnalysis`` key."""
+    func, operands = key
+    return " ".join([str(func)] + [
+        f"{str(dtype).replace('torch.', '')}[{','.join(map(str, shape))}]"
+        for dtype, shape in operands])
+
+
+def op_listing(ops: Dict[str, list], title: str = "") -> str:
+    """The text of an op listing: ``title`` as a ``#`` line, a header, one
+    line per key of ``ops`` (``OpAnalysis.ops``), largest FLOPs first and
+    then largest bytes, and a ``total`` line whose FLOPs and bytes are
+    ``OpAnalysis.flops`` and ``bytes``."""
+    rows = sorted(ops.items(), key=lambda kv: (-kv[1][1], -kv[1][2], kv[0]))
+    total = [sum(v[i] for _, v in rows) for i in range(3)]
+    lines = [f"# {title}"] if title else []
+    lines.append(f"# {'flops':>20} {'bytes':>16} {'count':>8} op operands")
+    lines += [f"{f:>22} {b:>16} {n:>8} {key}" for key, (n, f, b) in rows]
+    lines.append(f"total {total[1]} {total[2]} {total[0]}")
+    return "\n".join(lines) + "\n"
+
+
+def read_op_listing(text: str) -> Dict[str, Any]:
+    """An op listing's rows ``{key: [count, flops, bytes]}`` and its
+    ``total`` line's ``flops``, ``bytes`` and ``count``."""
+    rows, total = {}, None
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        if line.startswith("total "):
+            f, b, n = (int(x) for x in line.split()[1:])
+            total = {"flops": f, "bytes": b, "count": n}
+            continue
+        f, b, n, key = line.split(None, 3)
+        rows[key] = [int(n), int(f), int(b)]
+    return {"rows": rows, "total": total}
 
 
 class OpAnalysis(TorchDispatchMode):
@@ -144,27 +222,30 @@ class OpAnalysis(TorchDispatchMode):
         self.peak_holders: Dict[str, int] = {}
         self._scope_live: Counter = Counter()
         self.scope_peaks: Dict[str, int] = {}
-        self._shadow = 0             # inside DTensor's shape inference
-        self._restore = None
+        self._ops: Dict[tuple, list] = {}  # key -> [count, flops, bytes]
+        self._shadow = 0             # inside one of SHADOWED
+        self._restore: list = []
 
-    def __enter__(self):
-        from torch.distributed.tensor._sharding_prop import ShardingPropagator
-        infer = ShardingPropagator._propagate_tensor_meta_non_cached
-
-        def shadowed(prop, op_schema):
+    def _shadowing(self, method):
+        def shadowed(*args, **kwargs):
             self._shadow += 1
             try:
-                return infer(prop, op_schema)
+                return method(*args, **kwargs)
             finally:
                 self._shadow -= 1
+        return shadowed
 
-        ShardingPropagator._propagate_tensor_meta_non_cached = shadowed
-        self._restore = infer
+    def __enter__(self):
+        for module, name, attr in SHADOWED:
+            cls = getattr(importlib.import_module(module), name)
+            self._restore.append((cls, attr, cls.__dict__[attr]))
+            setattr(cls, attr, self._shadowing(getattr(cls, attr)))
         return super().__enter__()
 
     def __exit__(self, *exc):
-        from torch.distributed.tensor._sharding_prop import ShardingPropagator
-        ShardingPropagator._propagate_tensor_meta_non_cached = self._restore
+        while self._restore:
+            cls, attr, raw = self._restore.pop()
+            setattr(cls, attr, raw)
         return super().__exit__(*exc)
 
     # ------------------------------------------------------------------ #
@@ -203,6 +284,12 @@ class OpAnalysis(TorchDispatchMode):
             self._scope_live[made_by] -= n
 
     @property
+    def ops(self) -> Dict[str, list]:
+        """``[count, flops, bytes]`` of each op counted, keyed by its
+        overload and its tensor operands' dtypes and shapes."""
+        return {_key_text(k): list(v) for k, v in self._ops.items()}
+
+    @property
     def collective_bytes(self) -> int:
         return sum(self.collective_by_kind.values())
 
@@ -215,7 +302,8 @@ class OpAnalysis(TorchDispatchMode):
                 "peak_holders": dict(self.peak_holders),
                 "scope_peaks": dict(self.scope_peaks),
                 "flops_by_op": {k: float(v)
-                                for k, v in self.flops_by_op.items()}}
+                                for k, v in self.flops_by_op.items()},
+                "ops": self.ops}
 
     # ------------------------------------------------------------------ #
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -224,27 +312,36 @@ class OpAnalysis(TorchDispatchMode):
             return NotImplemented    # DTensor runs it; its local ops count
         if self._shadow:
             return func(*args, **kwargs)
-        for t in _tensors((args, kwargs)):
+        ins = _op_tensors((args, kwargs), [])
+        for t in ins:
             self._hold(t, "argument")   # live before the step, seen now
         out = func(*args, **kwargs)
+        outs = _op_tensors(out, [])
         name = func._schema.name
         if func.namespace == "repro_torch":
             self.launches[name.split("::", 1)[1]] += 1
         packet = func._overloadpacket
+        flops = moved = 0
         if packet in self._flop_registry:
-            n = self._flop_registry[packet](*args, **kwargs, out_val=out)
-            self.flops += n
-            self.flops_by_op[str(packet)] += n
+            flops = self._flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += flops
+            self.flops_by_op[str(packet)] += flops
         if name in _COLLECTIVES:
             kind, i = _COLLECTIVES[name]
-            n = sum(_nbytes(t) for t in _tensors(args[i]))
+            n = sum(_nbytes(t) for t in _op_tensors(args[i], []))
             self.collective_by_kind[kind] = \
                 self.collective_by_kind.get(kind, 0) + n
         if not (func.is_view or name in _NO_TRAFFIC
                 or func.namespace == "prim"):
-            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.bytes += sum(_nbytes(t) for t in _tensors(out))
+            moved = sum(_nbytes(t) for t in ins) + sum(_nbytes(t)
+                                                       for t in outs)
+            self.bytes += moved
+        key = (func, tuple((t.dtype, tuple(t.shape)) for t in ins))
+        rec = self._ops.setdefault(key, [0, 0, 0])
+        rec[0] += 1
+        rec[1] += flops
+        rec[2] += moved
         made_by = f"{_SCOPES[-1]}/{packet}" if _SCOPES else str(packet)
-        for t in _tensors(out):
+        for t in outs:
             self._hold(t, made_by)
         return out

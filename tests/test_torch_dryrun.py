@@ -51,6 +51,17 @@
   bytes a rank under ``cache_shardings``, on the cut whose kv heads are
   split over ``model`` (one all-to-all a leaf) and on the one whose kv
   heads are replicated (a local slice).
+* DTensor's searches over global-shape tensors go uncounted
+  (``op_analysis.SHADOWED``): one DTensor ``softplus`` of ``x.float()``,
+  forward and backward, on a fake world of 16 holds at most 16x its
+  local bf16 input at its peak and no more than a local f32 block in any
+  op (6.88 GB, ``aten.empty`` 2.15 GB of it, when the decomposition search
+  for ``softplus_backward`` was counted); a cut of jamba (the reduced
+  config's 16 layers at the cut's widths, 16 experts of 1,024) in the peak
+  tests, whose mamba layers take that path.
+* ``--save-hlo``: the CLI on the qwen2 cut writes ``<tag>.ops.txt`` beside
+  ``<tag>.json``, its totals equal to ``flops_per_device`` and
+  ``bytes_per_device``.
 """
 
 import json
@@ -73,7 +84,8 @@ from repro.models import api as j_api
 from repro_torch.configs import get_config, get_shape, list_configs
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
-from repro_torch.launch.op_analysis import OpAnalysis
+from repro_torch.launch.op_analysis import (OpAnalysis, op_listing,
+                                            read_op_listing)
 from repro_torch.models import cache_specs, input_specs
 from repro_torch.obs.report import roofline_attribution
 from repro_torch.tree import tree_leaves
@@ -102,7 +114,14 @@ CUT_DS = {"n_heads": 16, "n_kv_heads": 16, "d_model": 512,
           "vocab_size": 4096, "moe.n_experts": 16, "mla.kv_lora_rank": 64,
           "mla.q_lora_rank": 256}
 CUT_DS_CELLS = ["train_4k", "prefill_32k"]
+# jamba's reduced 16 layers ("mmmammmm" twice) at the cut's widths, its 16
+# experts of 1,024 one a rank
+JAMBA = "jamba-v0.1-52b"
+CUT_JAMBA = dict(CUT, **{"moe.n_experts": 16, "moe.d_expert": 1024})
+CUT_JAMBA_CELLS = ["train_4k", "prefill_32k"]
 PEAK_RATIO, HOLDER_BYTES = 2.0, 0.5e9
+# the softplus probe: a local bf16 block of each of 16 fake ranks
+PROBE_RANKS, PROBE_LOCAL = 16, (64, 1024, 256)
 KERNELS = ["quantize", "dequantize", "dequant_aggregate", "grad_aggregate",
            "switch_sum", "scatter_aggregate", "flash_attention"]
 
@@ -186,6 +205,45 @@ def test_op_analysis_peak_of_a_known_sequence(fake):
         assert oa.live_bytes == 4000 + 1000 + 3000
         del b, d, e
         assert oa.live_bytes == 4000
+
+
+def test_op_listing_totals_are_the_counts():
+    """``OpAnalysis.ops`` by overload and operands, written and read back
+    by ``op_listing``/``read_op_listing``: largest FLOPs first, totals
+    equal to the analysis's FLOPs and bytes."""
+    a, b = torch.randn(64, 48), torch.randn(48, 20)
+    with OpAnalysis() as oa:
+        for _ in range(3):
+            c = a @ b
+        torch.bmm(a[None], b[None])
+        c.add_(1.0).exp()
+    text = op_listing(oa.ops, "title")
+    got = read_op_listing(text)
+    assert got["total"] == {"flops": oa.flops, "bytes": oa.bytes,
+                            "count": sum(v[0] for v in oa.ops.values())}
+    assert got["rows"] == oa.ops
+    mm = got["rows"]["aten.mm.default float32[64,48] float32[48,20]"]
+    assert mm == [3, 3 * 2 * 64 * 48 * 20,
+                  3 * (64 * 48 + 48 * 20 + 64 * 20) * 4]
+    lines = [l for l in text.splitlines() if not l.startswith("#")]
+    assert lines[0].split()[3] == "aten.mm.default"
+    assert lines[1].split()[3] == "aten.bmm.default"
+    flops = [int(l.split()[0]) for l in lines[:-1]]
+    assert flops == sorted(flops, reverse=True)
+    assert text.startswith("# title\n")
+
+
+def test_op_analysis_restores_what_it_shadows():
+    import importlib
+    from repro_torch.launch.op_analysis import SHADOWED
+    raw = [importlib.import_module(m).__dict__[c].__dict__[a]
+           for m, c, a in SHADOWED]
+    with OpAnalysis():
+        now = [importlib.import_module(m).__dict__[c].__dict__[a]
+               for m, c, a in SHADOWED]
+        assert all(x is not y for x, y in zip(raw, now))
+    assert raw == [importlib.import_module(m).__dict__[c].__dict__[a]
+                   for m, c, a in SHADOWED]
 
 
 def test_op_analysis_counts_the_flash_kernel():
@@ -272,17 +330,49 @@ def test_cpu_route_is_the_plain_version():
 # --------------------------------------------------------------------------- #
 # run_cell against the reference's, each in its own process
 # --------------------------------------------------------------------------- #
-_PORT_SCRIPT = _CUT_SOURCE + textwrap.dedent("""
+_PORT_CELLS = _CUT_SOURCE + textwrap.dedent("""
     import json, sys
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+
+    def cut_cells(cuts):
+        out = {}
+        for name, (arch, cut, cells) in cuts.items():
+            cfg = cut_config(get_config(arch).reduced(), cut)
+            dryrun.get_config = lambda arch: cfg
+            out[name] = {shape: dryrun.run_cell(arch, shape, out_dir=None)
+                         for shape in cells}
+        return out
+""")
+
+_PORT_CELLS_SCRIPT = _PORT_CELLS + textwrap.dedent("""
+    print(json.dumps(cut_cells(json.loads(sys.argv[1]))))
+""")
+
+_PORT_SCRIPT = _PORT_CELLS + textwrap.dedent("""
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch import dryrun
+    import torch.nn.functional as F
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
     from repro_torch.launch.op_analysis import OpAnalysis
 
-    cuts = json.loads(sys.argv[1])
+    cuts, out_dir = json.loads(sys.argv[1]), sys.argv[2]
+    ranks, shape = json.loads(sys.argv[3])
     out = {}
+    dryrun.fake_world(ranks)
+    mesh = init_device_mesh("cpu", (ranks,))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        local = torch.empty(shape, dtype=torch.bfloat16, requires_grad=True)
+        x = DTensor.from_local(local, mesh, [Shard(0)], run_check=False)
+        oa = OpAnalysis()
+        oa.track(x)
+        with oa:
+            F.softplus(x.float()).sum().backward()
+    out["softplus"] = {"peak_bytes": oa.peak_bytes,
+                       "peak_holders": oa.peak_holders, "ops": oa.ops}
     dryrun.fake_world(4)
     x = torch.zeros(1, 256, dtype=torch.bfloat16)
     with OpAnalysis() as oa:
@@ -291,16 +381,16 @@ _PORT_SCRIPT = _CUT_SOURCE + textwrap.dedent("""
     with OpAnalysis() as oa:
         dist.all_gather_into_tensor(x.new_empty(4, 256), x)
     out["c10d"] = oa.collective_by_kind
-    for name, (arch, cut, cells) in cuts.items():
-        cfg = cut_config(get_config(arch).reduced(), cut)
-        dryrun.get_config = lambda arch: cfg
-        out[name] = {shape: dryrun.run_cell(arch, shape, out_dir=None)
-                     for shape in cells}
+    out.update(cut_cells(cuts))
     arch, cut, _ = cuts["cut"]
     cfg = cut_config(get_config(arch).reduced(), cut)
     out["mlfabric_2x16x16"] = dryrun.run_cell(
         arch, "train_4k", multi_pod=True, out_dir=None,
         step_kwargs={"grad_path": "mlfabric", "compress_inter": True})
+    dryrun.get_config = lambda arch: cfg
+    sys.argv = ["dryrun", "--arch", arch, "--shape", "train_4k",
+                "--out", out_dir, "--save-hlo"]
+    out["cli_rc"] = dryrun.main()
     print(json.dumps(out))
 """)
 
@@ -320,22 +410,40 @@ _REF_SCRIPT = _CUT_SOURCE + textwrap.dedent("""
 
 
 @pytest.fixture(scope="module")
-def cells():
+def cli_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("dryrun_cli"))
+
+
+@pytest.fixture(scope="module")
+def cells(cli_dir):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    args = [json.dumps({"cut": ["qwen2-0.5b", CUT, CUT_CELLS],
-                        "cut14": ["qwen2-0.5b", CUT_14, CUT_14_CELLS],
-                        "cut6": ["qwen2-0.5b", CUT_6, CUT_6_CELLS],
-                        "cut_ds": [DS, CUT_DS, CUT_DS_CELLS]})]
-    procs = {name: subprocess.Popen(
+    cuts = {"cut": ["qwen2-0.5b", CUT, CUT_CELLS],
+            "cut14": ["qwen2-0.5b", CUT_14, CUT_14_CELLS],
+            "cut6": ["qwen2-0.5b", CUT_6, CUT_6_CELLS],
+            "cut_ds": [DS, CUT_DS, CUT_DS_CELLS]}
+    jamba = {"cut_jamba": [JAMBA, CUT_JAMBA, CUT_JAMBA_CELLS]}
+    # the port's jamba cells each in a process of their own: the trace of
+    # its mamba layers' chunked scans takes 70-90 s a cell here
+    jobs = [("port", _PORT_SCRIPT, [json.dumps(cuts), cli_dir,
+                                    json.dumps([PROBE_RANKS, PROBE_LOCAL])]),
+            *(("port", _PORT_CELLS_SCRIPT,
+               [json.dumps({"cut_jamba": [JAMBA, CUT_JAMBA, [shape]]})])
+              for shape in CUT_JAMBA_CELLS),
+            ("ref", _REF_SCRIPT, [json.dumps({**cuts, **jamba})])]
+    procs = [(side, subprocess.Popen(
         [sys.executable, "-c", script, *args], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env)
-        for name, script in (("port", _PORT_SCRIPT), ("ref", _REF_SCRIPT))}
-    out = {}
-    for name, p in procs.items():
+        stderr=subprocess.PIPE, text=True, env=env))
+        for side, script, args in jobs]
+    out = {"port": {}, "ref": {}}
+    for side, p in procs:
         stdout, stderr = p.communicate(timeout=300)
         assert p.returncode == 0, stderr[-3000:]
-        out[name] = json.loads(stdout.strip().splitlines()[-1])
+        for name, res in json.loads(stdout.strip().splitlines()[-1]).items():
+            if isinstance(res, dict) and name in out[side]:
+                out[side][name].update(res)
+            else:
+                out[side][name] = res
     return out
 
 
@@ -391,14 +499,59 @@ def _check_peak(cells, cut, shape):
         port["peak_holders"]
 
 
-@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds"])
+@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds", "cut_jamba"])
 def test_train_peak_within_twice_the_reference(cells, cut):
     _check_peak(cells, cut, "train_4k")
 
 
-@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds"])
+@pytest.mark.parametrize("cut", ["cut", "cut14", "cut_ds", "cut_jamba"])
 def test_prefill_peak_within_twice_the_reference(cells, cut):
     _check_peak(cells, cut, "prefill_32k")
+
+
+def test_decomposition_search_is_not_the_ranks_memory(cells):
+    """One DTensor ``softplus`` forward and backward on a fake world of 16:
+    DTensor finds ``softplus_backward``'s sharding by running its
+    decomposition on global-shape tensors, which ``OpAnalysis`` must not
+    count.  The peak at most 16x the local input's bytes, no op above a
+    local f32 block."""
+    local = int(np.prod(PROBE_LOCAL))
+    got = cells["port"]["softplus"]
+    assert got["peak_bytes"] <= 16 * 2 * local, got
+    assert max(got["peak_holders"].values()) <= 4 * local, got
+    # the ops counted are the rank's: none moves a global-shape tensor
+    # (the backward's seed is a view of the whole shape, moving nothing)
+    whole = f"[{PROBE_RANKS * PROBE_LOCAL[0]},"
+    assert "aten.softplus_backward.default" in " ".join(got["ops"])
+    assert not any(whole in key and (flops or moved)
+                   for key, (_, flops, moved) in got["ops"].items()), \
+        got["ops"]
+
+
+def test_save_hlo_writes_the_op_listing(cells, cli_dir):
+    """``--save-hlo`` on the qwen2 cut: ``<tag>.ops.txt`` beside
+    ``<tag>.json``, its totals the JSON's FLOPs and bytes a rank, no op
+    run under DTensor's searches in it."""
+    assert cells["port"]["cli_rc"] == 0
+    tag = os.path.join(cli_dir, "qwen2-0.5b__train_4k__16-16")
+    with open(tag + ".json") as f:
+        res = json.load(f)
+    with open(tag + ".ops.txt") as f:
+        text = f.read()
+    listing = read_op_listing(text)
+    assert listing["total"]["flops"] == res["flops_per_device"] > 0
+    assert listing["total"]["bytes"] == res["bytes_per_device"] > 0
+    assert sum(v[1] for v in listing["rows"].values()) == \
+        listing["total"]["flops"]
+    assert any(k.startswith("aten.mm.default bfloat16[")
+               for k in listing["rows"])
+    # the same cell traced first in the process: DTensor's sharding cache
+    # was cold then, warm now, and no count depends on it
+    first = cells["port"]["cut"]["train_4k"]
+    for key in ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device"):
+        assert res[key] == first[key], key
+    assert res["memory"]["peak_bytes"] == first["memory"]["peak_bytes"]
 
 
 def _cache_bytes_per_rank(cut: dict, shape: str) -> int:
