@@ -49,6 +49,7 @@ import numpy as np
 
 from ..obs.critpath import dominant_bottleneck, find_collector
 from ..obs.metrics import MetricsRegistry
+from ..obs.trace import region
 from .aggregation import AggregationResult
 from .backends import SwitchPlanResult, profile_time_to
 from .delay import DelayTracker
@@ -1083,7 +1084,9 @@ class ClusterSim:
         # the scheduler plans entirely on copy-on-write overlays, so the
         # lagged view is passed by reference — the old per-batch deep copy
         # was O(hosts) and dominated planning cost at U=4096
-        plan = self.scheduler.schedule_batch(batch, self.net_lagged, t_now=t)
+        with region("mlfabric.plan", batch=batch_idx, updates=len(batch)):
+            plan = self.scheduler.schedule_batch(batch, self.net_lagged,
+                                                 t_now=t)
         if inflate:
             for u, s in orig_sizes:
                 u.size = s

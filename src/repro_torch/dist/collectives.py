@@ -58,6 +58,7 @@ import torch.nn.functional as F
 
 from ..kernels.ops import (dequant_aggregate_op, grad_aggregate_op,
                            quantize_op, scatter_aggregate_op, switch_sum_op)
+from ..obs.trace import region
 from ..tree import tree_flatten, tree_leaves, tree_unflatten
 from .flatbuf import (FlatLayout, bucket_slice, drop_slots, encode_int8,
                       int8_scale, pack_leaves, plan_flat_layout,
@@ -232,6 +233,9 @@ def reduce_packed(flat: torch.Tensor, layout: FlatLayout, *, mesh,
     per bucket, from the issue of its intra-pod reduce to the return of its
     cross-pod stage, on the host clock (collectives and kernels run
     asynchronously on a card, so this is issue time, not device time).
+    While a profiler records, each bucket's wait, aggregation and mean run
+    inside an ``mlfabric.bucket`` span on the profiler's clock, beside the
+    device work they launch.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
@@ -239,10 +243,11 @@ def reduce_packed(flat: torch.Tensor, layout: FlatLayout, *, mesh,
         compress_inter = True
     n_intra = mesh.shape[intra_axis]
     n_inter = mesh.shape[inter_axis] if inter_axis is not None else 1
-    t0 = time.perf_counter()
+    timed = tracer is not None
+    t0 = time.perf_counter() if timed else 0.0
     issued = []
     for k in range(len(layout.buckets)):
-        t_issue = time.perf_counter() - t0
+        t_issue = time.perf_counter() - t0 if timed else 0.0
         vec = bucket_slice(flat, layout, k)          # a view
         work = None
         if backend == "host" and n_intra > 1:
@@ -254,27 +259,29 @@ def reduce_packed(flat: torch.Tensor, layout: FlatLayout, *, mesh,
         issued.append((vec, work, t_issue))
     reduced: List[torch.Tensor] = []
     for k, (vec, work, t_issue) in enumerate(issued):
-        if work is not None:
-            work.wait()
-        if backend != "host":
-            vec = _intra_pod_switch_sum(vec, mesh.groups[intra_axis], n_intra)
-        if inter_axis is not None:
-            group = mesh.groups[inter_axis]
-            if keep_inter is not None:
-                d_bkt = vec.shape[0]
-                k_top = max(1, min(d_bkt, int(round(keep_inter * d_bkt))))
-                mask = (drop_mask_inter(k_top) if callable(drop_mask_inter)
-                        else drop_mask_inter)
-                vec = _inter_pod_aggregate_sparse(vec, group, n_inter,
-                                                  keep=keep_inter,
-                                                  drop_mask=mask)
-            else:
-                vec = _inter_pod_aggregate(vec, group, n_inter,
-                                           compress=compress_inter)
-        # dividing by one changes no bit: skip the bucket's copy
-        reduced.append(vec if mean_over == 1 else vec / mean_over)
-        if tracer is not None:
-            b = layout.buckets[k]
+        b = layout.buckets[k]
+        with region("mlfabric.bucket", bucket=k, bytes=b.nbytes):
+            if work is not None:
+                work.wait()
+            if backend != "host":
+                vec = _intra_pod_switch_sum(vec, mesh.groups[intra_axis],
+                                            n_intra)
+            if inter_axis is not None:
+                group = mesh.groups[inter_axis]
+                if keep_inter is not None:
+                    d_bkt = vec.shape[0]
+                    k_top = max(1, min(d_bkt, int(round(keep_inter * d_bkt))))
+                    mask = (drop_mask_inter(k_top) if callable(drop_mask_inter)
+                            else drop_mask_inter)
+                    vec = _inter_pod_aggregate_sparse(vec, group, n_inter,
+                                                      keep=keep_inter,
+                                                      drop_mask=mask)
+                else:
+                    vec = _inter_pod_aggregate(vec, group, n_inter,
+                                               compress=compress_inter)
+            # dividing by one changes no bit: skip the bucket's copy
+            reduced.append(vec if mean_over == 1 else vec / mean_over)
+        if timed:
             tracer.span(f"bucket{k} ({len(b.indices)} leaves)", cat="bucket",
                         track=intra_axis, ts=t_issue,
                         dur=time.perf_counter() - t0 - t_issue,

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..obs.trace import region
 from ..tree import tree_flatten, tree_unflatten
 
 Params = Any
@@ -187,19 +188,22 @@ def flat_compress_roundtrip(tree: Params, *, block: int = 256
     from ..kernels.ops import dequant_aggregate_op, quantize_op
 
     leaves, treedef = tree_flatten(tree)
-    flat = pack_leaves([F.pad(l.to(torch.float32).ravel(),
-                              (0, -l.numel() % block)) for l in leaves])
-    q, s = quantize_op(flat, block=block)
-    ones = torch.ones((1,), dtype=torch.float32, device=flat.device)
-    decoded, ssq = dequant_aggregate_op(q[None, :], s[None, :], ones,
-                                        block=block, orig_len=flat.numel())
-    out, off = [], 0
-    for leaf in leaves:
-        out.append(decoded[off:off + leaf.numel()].view(leaf.shape)
-                   .to(leaf.dtype))
-        off += leaf.numel() + (-leaf.numel() % block)
-    norm = torch.sqrt(ssq)
-    return tree_unflatten(treedef, out), float(norm)
+    with region("mlfabric.wire", floats=sum(l.numel() for l in leaves)):
+        flat = pack_leaves([F.pad(l.to(torch.float32).ravel(),
+                                  (0, -l.numel() % block)) for l in leaves])
+        q, s = quantize_op(flat, block=block)
+        ones = torch.ones((1,), dtype=torch.float32, device=flat.device)
+        decoded, ssq = dequant_aggregate_op(q[None, :], s[None, :], ones,
+                                            block=block,
+                                            orig_len=flat.numel())
+        out, off = [], 0
+        for leaf in leaves:
+            out.append(decoded[off:off + leaf.numel()].view(leaf.shape)
+                       .to(leaf.dtype))
+            off += leaf.numel() + (-leaf.numel() % block)
+        with region("mlfabric.sync", read="wire_norm"):
+            norm = float(torch.sqrt(ssq))
+    return tree_unflatten(treedef, out), norm
 
 
 # --------------------------------------------------------------------------- #

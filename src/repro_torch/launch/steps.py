@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -50,6 +51,7 @@ from ..models import api as model_api
 from ..models.api import value_and_grad
 from ..models.layers import is_dtensor
 from ..models.moe import global_batch_stats
+from ..obs.trace import region
 from ..optim.sgd import (MomentumState, momentum_sgd_init,
                          momentum_sgd_update, momentum_sgd_update_)
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -127,9 +129,10 @@ def _split(batch: Batch, n: int):
 def _metrics_and_grads(params: Params, batch: Batch, cfg: ModelConfig,
                        remat: bool) -> Tuple[Dict[str, torch.Tensor], Params]:
     """(detached metrics, grads tree) of ``tf.loss_fn`` at ``params``."""
-    (_, metrics), grads = value_and_grad(
-        functools.partial(tf.loss_fn, cfg=cfg, remat=remat), params, batch,
-        has_aux=True)
+    with region("mlfabric.fwd_bwd"):
+        (_, metrics), grads = value_and_grad(
+            functools.partial(tf.loss_fn, cfg=cfg, remat=remat), params,
+            batch, has_aux=True)
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -246,7 +249,13 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
     reduce_kw = dict(mesh=mesh, intra_axis="data", inter_axis=inter,
                      compress_inter=compress_inter, mean_over=n_data_shards)
 
+    calls = itertools.count()
+
     def train_step(params, opt_state, batch, *, update=momentum_sgd_update):
+        with region("mlfabric.step", step=next(calls)):
+            return _step(params, opt_state, batch, update)
+
+    def _step(params, opt_state, batch, update):
         local = _local_batch(batch, mesh, axes)
         layout = plan_reduce(params, bucket_bytes=bucket_bytes,
                              shortest_first=shortest_first)
@@ -255,9 +264,11 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
         for chunk in _split(local, overlap_chunks):
             m, g = _metrics_and_grads(params, chunk, cfg, remat)
             with torch.no_grad():
-                flat = pack_leaves(tree_leaves(g))   # the tree goes now
+                with region("mlfabric.pack"):
+                    flat = pack_leaves(tree_leaves(g))   # the tree goes now
                 del g
-                vecs = reduce_packed(flat, layout, **reduce_kw)
+                with region("mlfabric.reduce"):
+                    vecs = reduce_packed(flat, layout, **reduce_kw)
                 del flat
                 reduced = vecs if reduced is None else \
                     [r + v for r, v in zip(reduced, vecs)]
@@ -265,7 +276,8 @@ def build_mlfabric_train_step(cfg: ModelConfig, shape: ShapeConfig,
         if overlap_chunks > 1:
             reduced = [r / overlap_chunks for r in reduced]
             loss, aux = loss / overlap_chunks, aux / overlap_chunks
-        grads = unpack_reduced(reduced, layout, params)
+        with region("mlfabric.unpack"):
+            grads = unpack_reduced(reduced, layout, params)
         del reduced
         new_params, new_opt = update(params, grads, opt_state, lr=lr,
                                      gamma=gamma)

@@ -16,6 +16,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeConfig
 from ..device import DeviceLike, resolve_device
+from ..obs.trace import region
 from ..tree import tree_flatten, tree_unflatten
 from . import transformer as tf
 from .layers import Params
@@ -68,10 +69,12 @@ def value_and_grad(loss_fn: Callable, params: Params, batch, *,
     params are left as they are)."""
     leaves, treedef = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    out = loss_fn(tree_unflatten(treedef, live), batch)
+    with region("mlfabric.forward"):
+        out = loss_fn(tree_unflatten(treedef, live), batch)
     loss = out[0] if has_aux else out
-    return out, tree_unflatten(treedef, list(torch.autograd.grad(loss,
-                                                                 live)))
+    with region("mlfabric.backward"):
+        grads = torch.autograd.grad(loss, live)
+    return out, tree_unflatten(treedef, list(grads))
 
 
 def params_specs(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16

@@ -41,6 +41,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..obs.metrics import RUNTIME
+from ..obs.trace import recording
 from .layers import (Params, activation, apply_mlp, dense, init_mlp,
                      is_dtensor, normal, on_local_blocks, whole_rows,
                      whole_rows_grad)
@@ -102,7 +104,9 @@ def _dispatch_chunk(x: torch.Tensor, router_probs: torch.Tensor,
     expert of ``router_probs``; the one-hots hold the columns of
     ``experts`` (ids, all E by default) only.  An expert's slots depend
     on its own claims alone, so a block of its columns is the whole
-    one-hots' block."""
+    one-hots' block.  While a profiler records, it adds the claims, the
+    claims given a slot and the slots to ``obs.RUNTIME``'s ``moe/claims``,
+    ``moe/kept`` and ``moe/slots``, on the device."""
     g, t, e = router_probs.shape
     if experts is None:
         experts = torch.arange(e, device=x.device)
@@ -124,6 +128,10 @@ def _dispatch_chunk(x: torch.Tensor, router_probs: torch.Tensor,
         dispatch = dispatch + d_c
         combine = combine + (d_c.to(torch.float32)
                              * gates[..., choice, None, None])
+    if recording():
+        RUNTIME.counter("moe/claims").inc(counts.sum())
+        RUNTIME.counter("moe/kept").inc(counts.clamp_max(cap).sum())
+        RUNTIME.counter("moe/slots").inc(g * n * cap)
     return dispatch, combine
 
 

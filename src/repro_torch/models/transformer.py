@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..dist.policy import constrain
 from ..dist.sharding import to_cache_layout
+from ..obs.trace import region
 from . import attention as attn
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
@@ -145,10 +146,10 @@ def layer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int
     the MoE aux loss or None)."""
     kind = cfg.layer_kind(idx)
     hn = apply_norm(cfg.norm, p["norm1"], h)
-    if kind == "a":
-        mix_out, cache = attn.gqa_forward(p["mix"], hn, cfg)
-    elif kind == "l":
-        mix_out, cache = attn.mla_forward(p["mix"], hn, cfg)
+    if kind in ("a", "l"):
+        mix = attn.gqa_forward if kind == "a" else attn.mla_forward
+        with region("mlfabric.attention", layer=idx):
+            mix_out, cache = mix(p["mix"], hn, cfg)
     elif kind == "m":
         mix_out, cache = mamba_mod.mamba_forward(p["mix"], hn, cfg)
     elif kind == "r":
@@ -162,7 +163,8 @@ def layer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int
         mlp_out, cm_state = rwkv_mod.channel_mix(p["mlp"], hn)
         cache = {**cache, **cm_state}
     elif _is_moe_layer(cfg, idx):
-        mlp_out, aux = moe_forward(p["mlp"], hn, cfg)
+        with region("mlfabric.moe", layer=idx):
+            mlp_out, aux = moe_forward(p["mlp"], hn, cfg)
     else:
         mlp_out = apply_mlp(p["mlp"], hn, act=cfg.act)
     return constrain(h + mlp_out, "residual"), cache, aux

@@ -247,9 +247,20 @@ class MetricsRegistry:
     def names(self) -> List[str]:
         return sorted(self._instruments)
 
+    def clear(self) -> None:
+        """Drop every instrument (a new count starts from nothing)."""
+        self._instruments.clear()
+
     def __contains__(self, name: str) -> bool:
         return name in self._instruments
 
 
 #: Shared no-op registry: instrument anything, pay (almost) nothing.
 NULL_REGISTRY = MetricsRegistry.disabled()
+
+
+#: The program's own counters, added only while a ``torch.profiler`` records
+#: (``obs.trace.recording``), so set-up and untraced runs add nothing.
+#: Values may be device tensors, summed on the device: read them once,
+#: after the traced window.
+RUNTIME = MetricsRegistry()

@@ -1,4 +1,4 @@
-"""Bottleneck reports: render, serialize, and diff critical-path runs.
+"""Bottleneck reports: render and diff critical-path runs.
 
 :func:`build_report` folds a :class:`~repro.obs.critpath.CritPathCollector`
 into a :class:`BottleneckReport` — phase shares, time-to-commit
@@ -14,16 +14,10 @@ one-line answer to "why did this run get slower?".
 ``launch/dryrun.py``: the same dominant-term convention over the
 roofline phases (compute / memory / collective) instead of the wire
 phases, so dryrun's ``result["bottleneck"]`` speaks the same dialect.
-
-CLI::
-
-    python -m repro_torch.obs.report RUN.json            # render one report
-    python -m repro_torch.obs.report A.json B.json       # diff two reports
 """
 
 from __future__ import annotations
 
-import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -87,35 +81,6 @@ class BottleneckReport:
         """Share spent in or waiting on the network — the answer to
         "is the network the bottleneck of this run?"."""
         return sum(self.phase_share.get(p, 0.0) for p in NETWORK_PHASES)
-
-    # ------------------------------------------------------------------ #
-    def to_results(self) -> Dict[str, Any]:
-        """Plain-data payload for the bench-schema ``results`` field."""
-        return {
-            "name": self.name,
-            "n_commits": self.n_commits,
-            "n_attributed": self.n_attributed,
-            "phase_seconds": dict(self.phase_seconds),
-            "phase_share": dict(self.phase_share),
-            "top_links": [dict(row) for row in self.top_links],
-            "latency": dict(self.latency),
-            "dominant_phase": self.dominant_phase,
-            "dominant_link": self.dominant_link,
-            "transmission_share": self.transmission_share,
-            "wire_seconds": self.wire_seconds,
-            "network_share": self.network_share,
-            "meta": dict(self.meta),
-        }
-
-    @classmethod
-    def from_results(cls, d: Dict[str, Any]) -> "BottleneckReport":
-        return cls(name=d["name"], n_commits=d["n_commits"],
-                   n_attributed=d["n_attributed"],
-                   phase_seconds=dict(d["phase_seconds"]),
-                   phase_share=dict(d["phase_share"]),
-                   top_links=[dict(r) for r in d["top_links"]],
-                   latency=dict(d["latency"]),
-                   meta=dict(d.get("meta", {})))
 
     # ------------------------------------------------------------------ #
     def render(self) -> str:
@@ -234,46 +199,3 @@ def render_comparison(cmp: Dict[str, Any]) -> str:
     if not cmp["regressions"]:
         lines.append("  no phase-share regressions")
     return "\n".join(lines)
-
-
-# --------------------------------------------------------------------------- #
-# (de)serialization via the bench schema
-# --------------------------------------------------------------------------- #
-def write_report(report: BottleneckReport, path: str, *,
-                 config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Write the report as a schema-validated BENCH record."""
-    from .bench_schema import bench_record, write_bench_record
-    rec = bench_record(f"critpath_{report.name}", config=dict(config or {}),
-                       results=report.to_results())
-    write_bench_record(rec, path)
-    return rec
-
-
-def load_report(path: str) -> BottleneckReport:
-    """Load a report written by :func:`write_report` (or a raw payload)."""
-    with open(path) as f:
-        obj = json.load(f)
-    payload = obj.get("results", obj) if isinstance(obj, dict) else obj
-    return BottleneckReport.from_results(payload)
-
-
-def main(argv: Optional[List[str]] = None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("reports", nargs="+",
-                    help="one report JSON to render, or two to diff")
-    ap.add_argument("--threshold", type=float, default=0.05,
-                    help="phase-share regression threshold (absolute)")
-    ns = ap.parse_args(argv)
-    reports = [load_report(p) for p in ns.reports]
-    if len(reports) == 1:
-        print(reports[0].render())
-    else:
-        for a, b in zip(reports, reports[1:]):
-            print(render_comparison(
-                compare_reports(a, b, share_threshold=ns.threshold)))
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

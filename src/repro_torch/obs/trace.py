@@ -1,4 +1,5 @@
-"""Structured span/event tracer with a Chrome ``trace_event`` exporter.
+"""Structured span/event tracer with a Chrome ``trace_event`` exporter, and
+the program's own spans on the profiler's clock.
 
 The simulator and the trainer harness record *what happened when* as spans
 (``span``: a named interval on a track) and instants (``instant``: a point
@@ -20,13 +21,24 @@ thread row only render correctly when they nest.
 ``NullTracer`` is the zero-overhead mode: every method is a no-op, so the
 simulator can call ``tracer.span(...)`` unconditionally (pinned by the
 golden-trace test: instrumented and uninstrumented runs are identical).
+
+``region(name, **args)`` is the other way a span is opened: a
+``torch.profiler.record_function`` range, opened only while a
+``torch.profiler`` records on the calling thread.  The profiler stamps these
+ranges and the device's kernels, copies and fills on one clock and keeps
+them in memory until it exports its trace; with no profiler running a
+region costs one C-level check.  The program's spans are named
+``mlfabric.*``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 _US = 1e6        # seconds -> trace microseconds
 _LANE_EPS = 1e-12
@@ -228,3 +240,25 @@ def validate_chrome_trace(obj: Any) -> List[str]:
         if not isinstance(ev.get("name"), str):
             problems.append(f"{where}: missing name")
     return problems
+
+
+# --------------------------------------------------------------------------- #
+# spans on the profiler's clock
+# --------------------------------------------------------------------------- #
+#: Whether a ``torch.profiler`` records on the calling thread (autograd's
+#: threads inherit the caller's profiler state).
+recording = torch._C._autograd._profiler_enabled
+
+_OFF = contextlib.nullcontext()
+
+
+def region(name: str, **args: Any):
+    """A span named ``name`` while a profiler records, else one shared no-op
+    context.  The profiler's Chrome export drops a range's argument string,
+    so ``args`` follow the name, ``"mlfabric.commit uid=3 worker=worker1"``:
+    readers take the span's kind as the name up to its first space."""
+    if not recording():
+        return _OFF
+    if args:
+        name = " ".join([name] + [f"{k}={v}" for k, v in args.items()])
+    return torch.profiler.record_function(name)

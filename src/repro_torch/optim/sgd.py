@@ -18,6 +18,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from ..obs.trace import region
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Params = Any
@@ -90,20 +91,21 @@ def momentum_sgd_update_(params: Params, grads: Params, state: MomentumState,
     larger than one piece in f32.  A DTensor leaf is updated on its local
     shard.  Read nothing that aliases a param or its history during the
     update (e.g. a graph that saved them)."""
-    for p, g, h in zip(tree_leaves(params), tree_leaves(grads),
-                       tree_leaves(state.history)):
-        leaf = (_local(p), _local(g), _local(h))
-        if all(x.is_contiguous() for x in leaf):
-            leaf = [_pieces(x, chunk) for x in leaf]
-        else:                  # one piece, the whole leaf
-            leaf = [[x] for x in leaf]
-        for pc, gc, hc in zip(*leaf):
-            gf = gc.to(torch.float32)
-            if weight_decay:
-                gf = gf + weight_decay * pc.to(torch.float32)
-            hc.copy_(-lr * gf + gamma * hc)
-            del gf
-            pc.copy_(pc.to(torch.float32) + hc)
+    with region("mlfabric.update"):
+        for p, g, h in zip(tree_leaves(params), tree_leaves(grads),
+                           tree_leaves(state.history)):
+            leaf = (_local(p), _local(g), _local(h))
+            if all(x.is_contiguous() for x in leaf):
+                leaf = [_pieces(x, chunk) for x in leaf]
+            else:                  # one piece, the whole leaf
+                leaf = [[x] for x in leaf]
+            for pc, gc, hc in zip(*leaf):
+                gf = gc.to(torch.float32)
+                if weight_decay:
+                    gf = gf + weight_decay * pc.to(torch.float32)
+                hc.copy_(-lr * gf + gamma * hc)
+                del gf
+                pc.copy_(pc.to(torch.float32) + hc)
     return params, state
 
 

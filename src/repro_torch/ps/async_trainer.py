@@ -22,6 +22,7 @@ from ..core.simulator import (BandwidthModel, ClusterSim, CommitRecord,
                               N_STATIC, StragglerModel, C1)
 from ..device import DeviceLike, check_on_device, resolve_device
 from ..dist.flatbuf import flat_compress_roundtrip
+from ..obs.trace import region
 from ..tree import tree_leaves
 from .replica import ReplicaServer
 from .server import ParameterServer
@@ -128,16 +129,19 @@ class AsyncTrainer:
     def _on_compute(self, worker: str, version: int) -> Tuple[float, float]:
         """Simulator asks: worker computes an update against the CURRENT
         server model (the version it just pulled)."""
-        params, v = self.server.pull()
-        batch = self.data_fn(worker, self._t)
-        self._t += 1
-        w = self.workers[worker]
-        update, norm = w.compute_update(
-            params, batch, version=v, t=self._t,
-            observed_delay=int(self.server.delays.mean) if w.delay_adaptive
-            else 0)
-        if self.compress:
-            update, norm = flat_compress_roundtrip(update)
+        with region("mlfabric.compute", worker=worker, version=version,
+                    t=self._t):
+            params, v = self.server.pull()
+            with region("mlfabric.data"):
+                batch = self.data_fn(worker, self._t)
+            self._t += 1
+            w = self.workers[worker]
+            update, norm = w.compute_update(
+                params, batch, version=v, t=self._t,
+                observed_delay=int(self.server.delays.mean)
+                if w.delay_adaptive else 0)
+            if self.compress:
+                update, norm = flat_compress_roundtrip(update)
         if worker in self._payloads:
             raise RuntimeError(f"{worker} already has an update in flight")
         self._payloads[worker] = (update, v)
@@ -145,16 +149,18 @@ class AsyncTrainer:
 
     def _on_commit(self, rec: CommitRecord) -> None:
         update, version_used = self._payloads.pop(rec.worker)
-        self.server.push(update, version_used)
-        if self.replica is not None:
-            # stage the identical (already wire-decoded) payload for the
-            # replica: the simulator releases it once the copy lands and
-            # every earlier server commit has been replica-applied
-            self._replica_pending[rec.uid] = (update, version_used)
-        self.result.commits += 1
-        if self.eval_fn and self.result.commits % 10 == 0:
-            loss = float(self.eval_fn(self.server.params))
-            self.result.losses.append((rec.time, loss))
+        with region("mlfabric.commit", uid=rec.uid, worker=rec.worker,
+                    version=version_used):
+            self.server.push(update, version_used)
+            if self.replica is not None:
+                # stage the identical (already wire-decoded) payload for the
+                # replica: the simulator releases it once the copy lands and
+                # every earlier server commit has been replica-applied
+                self._replica_pending[rec.uid] = (update, version_used)
+            self.result.commits += 1
+            if self.eval_fn and self.result.commits % 10 == 0:
+                loss = float(self.eval_fn(self.server.params))
+                self.result.losses.append((rec.time, loss))
 
     def _on_replica_commit(self, uid: int, t: float) -> None:
         update, version_used = self._replica_pending.pop(uid)
@@ -177,8 +183,9 @@ class AsyncTrainer:
     # -- run ---------------------------------------------------------------- #
     def run(self, *, until_commits: int = 100,
             until_time: float = math.inf) -> AsyncTrainResult:
-        sim_res = self.sim.run(until_commits=until_commits,
-                               until_time=until_time)
+        with region("mlfabric.run"):
+            sim_res = self.sim.run(until_commits=until_commits,
+                                   until_time=until_time)
         self.result.drops = sim_res.drops
         self.result.sim_time = sim_res.sim_time
         self.result.delay_stats = sim_res.delay.summary()

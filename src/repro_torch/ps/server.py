@@ -23,6 +23,7 @@ from typing import Any, Tuple
 import torch
 
 from ..core.delay import DelayTracker
+from ..obs.trace import region
 from ..tree import tree_leaves, tree_map
 
 Params = Any
@@ -49,10 +50,12 @@ class ParameterServer:
         h <- u + gamma * h (f32); p <- p + h, summed in f32 and rounded to
         p's dtype."""
         self.delays.record(self.version - version_used)
-        for p, h, u in zip(tree_leaves(self.params),
-                           tree_leaves(self.history), tree_leaves(update)):
-            h.mul_(self.gamma).add_(u.to(torch.float32))
-            p.add_(h)
+        with region("mlfabric.update"):
+            for p, h, u in zip(tree_leaves(self.params),
+                               tree_leaves(self.history),
+                               tree_leaves(update)):
+                h.mul_(self.gamma).add_(u.to(torch.float32))
+                p.add_(h)
         self.version += 1
         return self.version
 

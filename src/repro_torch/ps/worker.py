@@ -15,6 +15,7 @@ import torch
 
 from ..core.delay import adadelay_lr
 from ..models.api import value_and_grad
+from ..obs.trace import region
 from ..optim.sgd import update_norm
 from ..tree import tree_map
 
@@ -36,8 +37,9 @@ class Worker:
                        version: int, t: int, observed_delay: int = 0,
                        ) -> Tuple[Params, float]:
         """Returns (update tree u = -eta*grad in f32, ||u||)."""
-        _, grads = value_and_grad(self._loss_fn, params, batch,
-                                  has_aux=self._has_aux)
+        with region("mlfabric.fwd_bwd"):
+            _, grads = value_and_grad(self._loss_fn, params, batch,
+                                      has_aux=self._has_aux)
         if self.delay_adaptive:
             eta = adadelay_lr(self.base_lr, max(t, 1), observed_delay)
         else:
@@ -46,4 +48,7 @@ class Worker:
             update = tree_map(
                 lambda g, p: -eta * (g.to(torch.float32) + self.weight_decay
                                      * p.to(torch.float32)), grads, params)
-        return update, float(update_norm(update))
+        norm = update_norm(update)
+        with region("mlfabric.sync", read="update_norm"):
+            norm = float(norm)
+        return update, norm
